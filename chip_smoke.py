@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``gtcrn_micro_tpu_torch/csrc`` and drives the
+served path -- audio in, online STFT as a GEMM, the fused GTCRN-Micro
+kernel, online iSTFT as a GEMM, audio out -- through
+``gtcrn_micro_tpu_torch.serve.CohortServer`` at the full model width with
+seeded random weights.  Phases (one line each; any failed check exits 1):
+
+1. device  -- a CUDA card is required; prints its name and power limit.
+2. build   -- compiles every kernel (one nvcc per source, in parallel).
+3. kernels -- each kernel against its plain PyTorch version on the card:
+              f32 at B=256 over 24 frames (max-abs <= 1e-4, SNR >= 80 dB:
+              another summation order across ~40 layers and a 24-step
+              recurrence), bf16 storage against the f32 plain version
+              (reported; SNR >= 30 dB as a sanity bound), and one step at
+              the served shape (B=8192, bf16) from the same state (every
+              value within one bf16 rounding step, 2^-7 of the largest
+              magnitude).  Times each kernel, its plain version and its
+              bound at the served shape.
+4. serve   -- CohortServer(mode="audio", dft="mxu", bf16), batch 8192 x 2
+              cohorts, 64 round-robin intervals of seeded audio on kernel
+              B2 (the default backend), then 8 on kernel B1: finite output,
+              a silent slot gives exactly 0, launch counts equal the steps,
+              admit/release/reset zeroes one slot's column; the served step
+              timed with CUDA events, and its device time split into the
+              kernel, the two GEMMs and the rest by torch.profiler, with the
+              device's idle share.
+5. slice parity -- the same server in f32 at batch 64 for 24 hops on the
+              kernel backends and on the plain backend: SNR >= 80 dB.
+
+Prints the kernels JSON line, the card line, and last
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_F32_FLOPS = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
+H100_HBM_BYTES = 3.35e12
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def snr_db(ref, x) -> float:
+    ref, x = ref.double(), x.double()
+    err = float(((x - ref) ** 2).sum())
+    return 10 * math.log10(max(float((ref ** 2).sum()), 1e-30) / max(err, 1e-30))
+
+
+def cuda_ms(torch, fn, n=20, warm=3) -> float:
+    """Median device time of one call of ``fn``, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def profile_split(torch, srv, chunk, K, n=10) -> str:
+    """Device time per served step by kernel group (torch.profiler), and the
+    device's idle share of the host wall clock over ``n`` back-to-back
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            srv.step(i % K, chunk)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    glue = "glue (cat, copies, casts, OLA add)"
+    groups = {"STFT GEMM": 0.0, "kernel": 0.0, "iSTFT GEMM": 0.0, glue: 0.0}
+    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    # between two fused kernels the GEMM launches come in two runs split by
+    # glue: the iSTFT of one step, then the STFT of the next (a GEMM may take
+    # more than one launch); before the first kernel there is only an STFT
+    run, prev_gemm = 0, False
+    for e in evs:
+        is_gemm = "gemm" in e.name.lower()
+        if "fused_" in e.name:
+            g, run = "kernel", -1
+        elif is_gemm:
+            run += not prev_gemm
+            g = "iSTFT GEMM" if run == 0 else "STFT GEMM"
+        else:
+            g = glue
+        prev_gemm = is_gemm
+        groups[g] += e.time_range.elapsed_us()
+    busy = sum(groups.values())
+    if busy == 0:
+        return "torch.profiler recorded no device time: split not measured"
+    parts = ", ".join(f"{k} {v / n / 1e3:.3f} ms" for k, v in groups.items())
+    return (f"device time per step (torch.profiler, {n} steps): {parts}; busy "
+            f"{busy / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms wall, idle share "
+            f"{1 - busy / wall_us:.1%} (host clock, profiler on)")
+
+
+def work_per_stream(RING_DEFS, W):
+    """Per stream and frame: the multiply-adds the fused forward needs, and
+    the ring values it reads and writes.  The fixed ERB merge and split count
+    by the nonzeros of their matrices in the unpacked weights ``W``; the
+    padding of the frequency convs and the zeros stuffed into the transposed
+    convs count nothing."""
+    def taps_stride2(fin, fout):  # k in 0..4 with 0 <= 2 fo + k - 2 < fin
+        return sum(1 for fo in range(fout) for k in range(5) if 0 <= 2 * fo + k - 2 < fin)
+
+    def taps_up2(fin):  # zero-stuffed input of length 2 fin - 1
+        return sum(1 for fo in range(2 * fin - 1) for k in range(5)
+                   if 0 <= fo + k - 2 <= 2 * fin - 2 and (fo + k - 2) % 2 == 0)
+
+    f3 = sum(1 for f in range(33) for kf in range(3) if 0 <= f + kf - 1 < 33)  # 97
+    gt_common = 33 * 16 * 8 * 2 + 8 * 33 + 8 * 3 + 8 * 8  # pw1, pw2, energy, TRA
+    nnz = lambda w: int((w != 0).sum())  # noqa: E731
+    macs = (2 * 257                           # mag: re^2 + im^2
+            + 3 * nnz(W["bm_w"])              # ERB merge (mag, re, im)
+            + 3 * (3 * 129 - 2)               # SFE: depthwise 3-tap over 3 channels
+            + taps_stride2(129, 65) * 16 * 3  # en0
+            + taps_stride2(65, 33) * 16 * 16  # en1
+            + 3 * (gt_common + 3 * f3 * 16)   # encoder GTConv, depthwise 3x3
+            + 8 * (2 * 33 * 16 * 16 + 3 * 16 * 33)  # TCNs
+            + 3 * (gt_common + 3 * f3 * 16 * 16)    # decoder GTConv, full 3x3
+            + taps_up2(33) * 16 * 16          # de3
+            + taps_up2(65) * 2 * 16           # de4
+            + 2 * nnz(W["bs_w"])              # ERB split (real, imag)
+            + 4 * 257)                        # complex mask
+    frame = sum(math.prod(shape) for _n, _L, _d, shape in RING_DEFS)
+    return macs, 2 * frame, frame
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
+        fail(f"the port package gtcrn_micro_tpu_torch is not beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    # -- 1. device -------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi: {e}")
+    card = card.splitlines()[0]
+    dev = torch.device("cuda", 0)
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    say("device", f"{kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; "
+                  f"card {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
+    from gtcrn_micro_tpu_torch.ops import _build
+    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_step import (
+        RING_DEFS,
+        FusedGTCRNMicro,
+        LayoutGTCRNMicro,
+        _slots,
+        unpack,
+    )
+    from gtcrn_micro_tpu_torch.serve import CohortServer, plan_cohorts
+
+    # -- 2. build --------------------------------------------------------
+    secs = _build.build()
+    say("build", f"built {', '.join(_build.SOURCES)} in {secs:.1f} s "
+                 f"({' '.join(_build.NVCC_FLAGS)})")
+
+    params = init_params(torch.Generator().manual_seed(0), device=dev)
+    kernels = {
+        "fused_step_b1": dict(cls=FusedGTCRNMicro, source="gtcrn_micro_tpu_torch/csrc/fused_step.cu",
+                              replaces="gtcrn_micro_tpu/ops/fused_step.py:402"),
+        "fused_grid_b2": dict(cls=GridFusedGTCRNMicro, source="gtcrn_micro_tpu_torch/csrc/fused_grid.cu",
+                              replaces="gtcrn_micro_tpu/ops/fused_grid.py:167"),
+    }
+
+    # -- 3. kernels ------------------------------------------------------
+    B, T = 256, 24
+    g = torch.Generator().manual_seed(1)
+    spec = (torch.randn((B, 257, T, 2), generator=g) * 0.2).to(dev)
+
+    def stream(model, dtype):
+        st = model.init_state(B)
+        outs = []
+        for t in range(T):
+            y, st = model.step(None, st, spec[:, :, t : t + 1].to(dtype))
+            outs.append(y.float())
+        torch.cuda.synchronize()
+        return torch.cat(outs, dim=2), st
+
+    plain = LayoutGTCRNMicro(params, dtype=torch.float32, device=dev)
+    ref, ref_st = stream(plain, torch.float32)
+    for name, k in kernels.items():
+        model = k["cls"](params, dtype=torch.float32, device=dev)
+        out, st = stream(model, torch.float32)
+        err = float((out - ref).abs().max())
+        ring_err = max(float((st[n] - ref_st[n]).abs().max()) for n, *_ in RING_DEFS)
+        snr = snr_db(ref, out)
+        ok = (err <= 1e-4 and ring_err <= 1e-4 and snr >= 80 and st["step"] == ref_st["step"]
+              and model.launches == T)
+        say("kernels", f"{name} f32 B={B} {T} frames vs plain: max-abs {err:.3g}, "
+                       f"rings max-abs {ring_err:.3g}, SNR {snr:.1f} dB "
+                       f"(bound 1e-4, 80 dB), launches {model.launches} "
+                       f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version")
+        out16, _ = stream(k["cls"](params, dtype=torch.bfloat16, device=dev), torch.bfloat16)
+        snr16 = snr_db(ref, out16)
+        say("kernels", f"{name} bf16 storage vs f32 plain: SNR {snr16:.1f} dB (sanity bound 30 dB)")
+        if not (torch.isfinite(out16).all() and snr16 >= 30):
+            fail(f"{name} bf16 output is not sane")
+        k.update(f32_max_abs_err=err, f32_snr_db=snr, bf16_snr_db=snr16)
+
+    # the served shape: one step from the same state, kernel vs plain
+    BS, dt = 8192, torch.bfloat16
+    macs, ring_read, ring_written = work_per_stream(RING_DEFS, unpack(plain.weights))
+    esz = torch.finfo(dt).bits // 8
+    spec_s = (torch.randn((BS, 257, 1, 2), generator=g) * 0.2).to(dev, dt)
+    plain16 = LayoutGTCRNMicro(params, dtype=dt, device=dev)
+    st0 = plain16.init_state(BS)
+    for n, *_ in RING_DEFS:
+        st0[n].copy_(torch.rand(st0[n].shape, generator=g).mul_(0.6).sub_(0.3))
+    st0["step"] = 5
+
+    def clone(st):
+        return {k: (v.clone() if torch.is_tensor(v) else v) for k, v in st.items()}
+
+    plain_st = clone(st0)
+    yp, plain_st = plain16.step(None, plain_st, spec_s)
+    timing_st = clone(st0)  # steps on it advance its counter; timing only
+    plain_ms = cuda_ms(torch, lambda: plain16.step(None, timing_st, spec_s), n=10)
+    flops = 2 * macs * BS
+    nbytes = esz * (BS * (2 * 257 * 2 + ring_read + ring_written) + plain16.weights.buf.numel())
+    bound_ms = max(nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / H100_HBM_BYTES > flops / H100_F32_FLOPS else "operations"
+    say("kernels", f"served shape B={BS} bf16: {macs} MAC/stream/frame -> {flops / 1e9:.3f} GFLOP "
+                   f"f32, {nbytes / 1e6:.1f} MB moved; bound {bound_ms:.4f} ms by {bound_by} "
+                   f"(H100 SXM peaks: 67 TFLOP/s f32, 3.35 TB/s)")
+    for name, k in kernels.items():
+        model = k["cls"](params, dtype=dt, device=dev)
+        st = clone(st0)
+        yk, st = model.step(None, st, spec_s)
+        torch.cuda.synchronize()
+        err = float((yk.float() - yp.float()).abs().max())
+        ok = err <= 2 ** -7 * float(yp.float().abs().max())
+        for n, *_ in RING_DEFS:
+            d = float((st[n].float() - plain_st[n].float()).abs().max())
+            ok = ok and d <= 2 ** -7 * float(plain_st[n].float().abs().max())
+        # time the bare kernel launch (not through the counted wrapper)
+        out = torch.empty_like(spec_s)
+        t = st["step"]
+        if name == "fused_step_b1":
+            taps, frames = [], []
+            for n, L, d, shape in RING_DEFS:
+                s0, s1 = _slots(t, L, d)
+                taps += [st[n][s0], st[n][s1]]
+                frames.append(torch.empty(shape + (BS,), dtype=dt, device=dev))
+            launch = lambda: _build.launch_b1(model.weights, spec_s, out, taps, frames)
+        else:
+            rings = [st[n] for n, *_ in RING_DEFS]
+            launch = lambda: _build.launch_b2(model.weights, spec_s, out, rings, t)
+        ms = cuda_ms(torch, launch)
+        wrapper_ms = cuda_ms(torch, lambda: model.step(None, timing_st, spec_s), n=10)
+        k.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 wrapper_ms=wrapper_ms)
+        say("kernels", f"{name} B={BS} bf16 one step vs plain: max-abs {err:.3g} "
+                       f"(bound one bf16 step) {'ok' if ok else 'FAILED'}; kernel {ms:.3f} ms, "
+                       f"model step {wrapper_ms:.3f} ms, plain step {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)")
+        if not ok:
+            fail(f"{name} disagrees with its plain version at the served shape")
+    del st0, plain_st, timing_st, yp
+
+    # -- 4. serve --------------------------------------------------------
+    K, intervals = 2, 64
+    ga = torch.Generator(device=dev).manual_seed(2)
+    silent = (0, 5)  # (cohort, slot) fed zeros throughout
+    for name, n_int in (("fused_grid_b2", intervals), ("fused_step_b1", 8)):
+        model = kernels[name]["cls"](params, dtype=dt, device=dev)
+        srv = CohortServer(model, params, batch=BS, n_cohorts=K, dtype=dt, mode="audio",
+                           dft="mxu", device=dev)
+        model.launches = 0
+        finite, silent_max, loud = True, 0.0, 0.0
+        for _ in range(n_int):
+            for c in range(K):
+                chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(dt)
+                if c == silent[0]:
+                    chunk[silent[1]] = 0
+                out = srv.step(c, chunk)
+                finite = finite and bool(torch.isfinite(out).all())
+                if c == silent[0]:
+                    silent_max = max(silent_max, float(out[silent[1]].abs().max()))
+                    loud = max(loud, float(out[silent[1] + 1].abs().max()))
+        torch.cuda.synchronize()
+        steps = n_int * K
+        ok = finite and silent_max == 0.0 and loud > 0 and model.launches == steps
+        say("serve", f"{name}: {n_int} intervals x {K} cohorts x {BS} streams bf16: finite "
+                     f"{finite}, silent slot max {silent_max}, launches {model.launches} for "
+                     f"{steps} steps {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"serving through {name} failed its checks")
+        kernels[name]["launches"] = model.launches
+        if name != "fused_grid_b2":
+            continue
+        # admit / release / reset: the slot's column of every ring is zeroed
+        slot = srv.admit(1)
+        busy = any(float(v[..., slot].abs().max()) > 0 for k, v in srv._states[1].items()
+                   if k != "step")
+        srv.release(1, slot)
+        srv.reset_slot(1, slot)
+        zeroed = all(float(v[..., slot].abs().max()) == 0 for k, v in srv._states[1].items()
+                     if k != "step")
+        kept = all(float(v[..., slot - 1].abs().max()) > 0 for k, v in srv._states[1].items()
+                   if k != "step")
+        dsp_zero = float(srv._dsp[1].in_buf[slot].abs().max()) == 0
+        if not (busy and zeroed and kept and dsp_zero):
+            fail(f"reset_slot: busy {busy} zeroed {zeroed} neighbour kept {kept} dsp {dsp_zero}")
+        say("serve", f"admit/release/reset of cohort 1 slot {slot}: its ring columns and DSP "
+                     f"rows zeroed, its neighbour's kept: ok")
+        # the served step by CUDA events, and its split by torch.profiler
+        chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(dt)
+        step_ms = cuda_ms(torch, lambda: srv.step(0, chunk), n=30, warm=4)
+        plan = plan_cohorts(step_ms / 1e3, BS)
+        say("serve", f"served step B={BS} bf16 (CUDA events, median of 30): {step_ms:.3f} ms; "
+                     f"card {card}")
+        say("serve", profile_split(torch, srv, chunk, K))
+        say("serve", f"plan_cohorts({step_ms / 1e3:.6f} s, {BS}): K={plan.n_cohorts} cohorts, "
+                     f"{plan.streams} streams, worst latency {plan.worst_latency_s * 1e3:.2f} ms")
+        del srv, model
+        # smaller cohorts: the served step and the plan each batch allows
+        for b in (1024, 2048, 4096):
+            srv = CohortServer(None, params, batch=b, n_cohorts=1, dtype=dt, mode="audio",
+                               dft="mxu", device=dev)
+            chunk = torch.randn((b, 256), generator=ga, device=dev).mul_(0.3).to(dt)
+            ms_b = cuda_ms(torch, lambda: srv.step(0, chunk), n=20, warm=4)
+            plan = plan_cohorts(ms_b / 1e3, b)
+            say("serve", f"served step B={b} bf16: {ms_b:.3f} ms; plan_cohorts: K={plan.n_cohorts}, "
+                         f"{plan.streams} streams, worst latency {plan.worst_latency_s * 1e3:.2f} ms")
+            del srv
+
+    # -- 5. slice parity -------------------------------------------------
+    Bp, hops = 64, 24
+    x = torch.randn((Bp, 256 * hops), generator=ga, device=dev).mul_(0.3)
+
+    def serve_audio(model):
+        srv = CohortServer(model, params, batch=Bp, n_cohorts=1, dtype=torch.float32,
+                           mode="audio", dft="mxu", device=dev)
+        return torch.cat([srv.step(0, x[:, 256 * t : 256 * (t + 1)]) for t in range(hops)], -1)
+
+    ref = serve_audio(LayoutGTCRNMicro(params, dtype=torch.float32, device=dev))
+    for name, k in kernels.items():
+        got = serve_audio(k["cls"](params, dtype=torch.float32, device=dev))
+        snr = snr_db(ref, got)
+        say("slice", f"audio server f32 B={Bp} {hops} hops, {name} vs plain backend: SNR "
+                     f"{snr:.1f} dB (bound 80 dB) {'ok' if snr >= 80 else 'FAILED'}")
+        if snr < 80:
+            fail(f"slice parity through {name}")
+
+    rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
+             "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+             "library_ms": None, "f32_max_abs_err": k["f32_max_abs_err"],
+             "f32_snr_db": k["f32_snr_db"], "bf16_snr_db": k["bf16_snr_db"],
+             "wrapper_ms": k["wrapper_ms"]}
+            for name, k in kernels.items()]
+    say("done", f"all phases ok in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

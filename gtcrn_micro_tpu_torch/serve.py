@@ -1,0 +1,312 @@
+"""Cohort serving engine: phase-staggered batched streaming on one GPU.
+
+Counterpart of the JAX package's ``serve.py``.  Streams are admitted into
+slots of K independent *cohorts*; each cohort is stepped once per 16 ms
+frame interval (one 256-sample hop per stream), with the cohorts' phases
+staggered across the interval.  In ``mode="audio"`` a step is audio in ->
+audio out: online STFT, the fused per-frame network, online iSTFT
+(``dsp/stream_dsp.py``); with ``dft="mxu"`` the windowed DFT pair is two
+GEMMs.
+
+    srv = CohortServer(None, params, batch=8192, n_cohorts=2, mode="audio")
+    sid = srv.admit(cohort=srv.next_cohort())
+    out = srv.step(cohort_idx, chunk)     # (B, 256) -> (B, 256), one hop behind
+
+The model backends (all with the step protocol ``step(params, state, spec)``
+and ring states ``(L, *frame, B)``, batch innermost):
+
+- ``GridFusedGTCRNMicro`` (the default): one launch of CUDA kernel B2;
+- ``FusedGTCRNMicro``: CUDA kernel B1 plus a gather and scatter;
+- ``LayoutGTCRNMicro``: the plain PyTorch version, on any device.
+
+Ring states and DSP buffers update in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gtcrn_micro_tpu_torch import resolve_device
+
+FRAME_S = 0.016
+LATENCY_BUDGET_S = 0.010
+
+
+@dataclasses.dataclass
+class CohortPlan:
+    """A validated (batch, n_cohorts) serving plan.
+
+    ``chunk_hops`` (T) > 1 is *throughput mode*: each step consumes T hops
+    per stream, so a cohort is stepped once per ``T * 16 ms`` interval, and
+    buffering T hops adds ``(T-1) * 16 ms`` to the latency.
+    """
+
+    batch: int
+    n_cohorts: int
+    step_time_s: float
+    chunk_hops: int = 1
+
+    @property
+    def streams(self) -> int:
+        return self.batch * self.n_cohorts
+
+    @property
+    def interval_s(self) -> float:
+        """Wall-clock between two steps of the same cohort."""
+        return self.chunk_hops * FRAME_S
+
+    @property
+    def keep_up_ok(self) -> bool:
+        return self.n_cohorts * self.step_time_s <= self.interval_s
+
+    @property
+    def worst_latency_s(self) -> float:
+        """Arrival of a hop -> its enhanced samples: chunk buffering,
+        worst-case phase offset to the cohort's slot, then the step."""
+        if self.n_cohorts == 0:
+            return float("inf")
+        return ((self.chunk_hops - 1) * FRAME_S
+                + self.interval_s / self.n_cohorts + self.step_time_s)
+
+    @property
+    def realtime_ok(self) -> bool:
+        return self.keep_up_ok and self.worst_latency_s <= LATENCY_BUDGET_S
+
+    def phase_of(self, cohort: int) -> float:
+        """Start offset (seconds) of a cohort's step inside each interval."""
+        return (cohort % self.n_cohorts) * self.interval_s / self.n_cohorts
+
+
+def plan_cohorts(step_time_s: float, batch: int,
+                 budget_s: float = LATENCY_BUDGET_S,
+                 chunk_hops: int = 1) -> CohortPlan:
+    """Largest keep-up plan within a latency budget for a measured per-step
+    time."""
+    k = 0
+    for cand in range(1, 65):
+        plan = CohortPlan(batch=batch, n_cohorts=cand,
+                          step_time_s=step_time_s, chunk_hops=chunk_hops)
+        if plan.keep_up_ok and plan.worst_latency_s <= budget_s:
+            k = cand
+    return CohortPlan(batch=batch, n_cohorts=k, step_time_s=step_time_s,
+                      chunk_hops=chunk_hops)
+
+
+class CohortServer:
+    """K independent ring-state cohorts over one model backend.
+
+    ``model`` is a backend instance (see the module docstring) or ``None``
+    for a ``GridFusedGTCRNMicro`` built from ``params`` in ``dtype`` on
+    ``device``.  ``step(i, chunk)`` advances cohort ``i`` by one hop for all
+    its streams.
+    """
+
+    def __init__(self, model, params, batch: int, n_cohorts: int,
+                 dtype=torch.bfloat16, mode: str = "spec", dft: str = "mxu",
+                 device=None, chunk_hops: int = 1, mesh=None):
+        if mode not in ("spec", "audio"):
+            raise ValueError(f"mode must be 'spec' or 'audio', got {mode!r}")
+        if chunk_hops != 1:
+            raise ValueError("the fused backends step one hop at a time "
+                             f"(chunk_hops=1), as the JAX fused steps do; got {chunk_hops}")
+        if mesh is not None:
+            raise NotImplementedError("data-parallel serving over several "
+                                      "GPUs is not ported yet")
+        self.device = resolve_device(device)
+        if model is None:
+            from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+
+            model = GridFusedGTCRNMicro(params, dtype=dtype, device=self.device)
+        if model.dtype != dtype or model.device != self.device:
+            raise ValueError(f"model is {model.dtype} on {model.device}, the "
+                             f"server {dtype} on {self.device}")
+        self.model = model
+        self.params = params
+        self.batch = batch
+        self.n_cohorts = n_cohorts
+        self.dtype = dtype
+        self.mode = mode
+        self.chunk_hops = chunk_hops
+        if mode == "audio":
+            from gtcrn_micro_tpu_torch.dsp.stft import sqrt_hann_window
+            from gtcrn_micro_tpu_torch.dsp.stream_dsp import (
+                init_dsp_state,
+                make_audio_step,
+            )
+
+            window = sqrt_hann_window(model.config.win_len, device=self.device)
+            self._step = make_audio_step(model, window, dft=dft)
+            self._dsp = [init_dsp_state(batch, dtype, self.device)
+                         for _ in range(n_cohorts)]
+        else:
+            self._step = model.step
+        self._states = [model.init_state(batch, dtype=dtype) for _ in range(n_cohorts)]
+        self._frames = [0] * n_cohorts
+        # clean free slots (rings are zeros) and recycled free slots (rings
+        # still carry a previous stream's history); admit() prefers clean
+        # slots and resets a recycled one before handing it out, so no
+        # stream ever sees another stream's state
+        self._free: list[list[int]] = [list(range(batch)) for _ in range(n_cohorts)]
+        self._recycled: list[list[int]] = [[] for _ in range(n_cohorts)]
+
+    # -- admission ---------------------------------------------------------
+
+    def next_cohort(self) -> int:
+        """Cohort with the most free slots (load balancing)."""
+        return max(range(self.n_cohorts),
+                   key=lambda i: len(self._free[i]) + len(self._recycled[i]))
+
+    def admit(self, cohort: int) -> int:
+        """Claim a stream slot in ``cohort``; its state is guaranteed zero.
+        Clean slots go first; a recycled slot is reset here."""
+        if self._free[cohort]:
+            return self._free[cohort].pop()
+        if self._recycled[cohort]:
+            slot = self._recycled[cohort].pop()
+            self.reset_slot(cohort, slot)
+            return slot
+        raise RuntimeError(f"cohort {cohort} full")
+
+    def release(self, cohort: int, slot: int) -> None:
+        """Return a slot to the recycled pool; it is zeroed when next
+        admitted."""
+        self._recycled[cohort].append(slot)
+
+    def reset_slot(self, cohort: int, slot: int) -> None:
+        """Zero one stream's state (idempotent): its column of every ring
+        (the batch is the LAST axis of the fused ring layout) and its row of
+        the DSP buffers.  A slot waiting in the recycled pool moves back to
+        the clean pool."""
+        if slot in self._recycled[cohort]:
+            self._recycled[cohort].remove(slot)
+            self._free[cohort].append(slot)
+        for k, v in self._states[cohort].items():
+            if k != "step":
+                v[..., slot] = 0
+        if self.mode == "audio":
+            d = self._dsp[cohort]
+            d.in_buf[slot] = 0
+            d.ola_buf[slot] = 0
+
+    # -- serving -----------------------------------------------------------
+
+    def step(self, cohort: int, frame: torch.Tensor) -> torch.Tensor:
+        """Advance ``cohort`` by one hop.
+
+        mode "spec":  frame is (batch, 257, 1, 2) spectra -> enhanced spectra.
+        mode "audio": frame is (batch, 256) samples -> enhanced samples one
+        hop behind (the first emitted hop per stream is the center trim).
+        """
+        frame = frame.to(self.device, self.dtype)
+        if self.mode == "audio":
+            out, self._dsp[cohort], self._states[cohort] = self._step(
+                self.params, self._dsp[cohort], self._states[cohort], frame)
+        else:
+            out, self._states[cohort] = self._step(
+                self.params, self._states[cohort], frame)
+        self._frames[cohort] += self.chunk_hops
+        return out
+
+    def round_robin(self, frames: list) -> list:
+        """One full interval: step every cohort once, in phase order."""
+        if len(frames) != self.n_cohorts:
+            raise ValueError(f"need {self.n_cohorts} frames, got {len(frames)}")
+        return [self.step(i, f) for i, f in enumerate(frames)]
+
+    @property
+    def frames_served(self) -> int:
+        return sum(self._frames)
+
+
+def _snr_db(ref, x) -> float:
+    ref, x = ref.double(), x.double()
+    err = float(((x - ref) ** 2).sum())
+    return 10.0 * torch.log10(torch.tensor(max(float((ref ** 2).sum()), 1e-20)
+                                           / max(err, 1e-20))).item()
+
+
+def main(args=None) -> None:
+    """Demo CLI: enhance audio through the audio-mode cohort server.
+
+    Admits one stream into a cohort, feeds one hop per (virtual) frame
+    interval, and reports the kernel backend's SNR against the plain
+    PyTorch version fed the same audio.  Without ``--wav`` the input is a
+    seeded synthetic signal; without ``--params`` the weights are a seeded
+    random init.
+    """
+    import argparse
+
+    import numpy as np
+
+    from gtcrn_micro_tpu_torch.io.params import load_params_npz
+    from gtcrn_micro_tpu_torch.io.wav import read_wav, write_wav
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
+    from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro, LayoutGTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+
+    parser = argparse.ArgumentParser(description="cohort serving demo")
+    parser.add_argument("--wav", default="", help="input wav (16 kHz mono)")
+    parser.add_argument("--out", default="", help="write the enhanced wav here")
+    parser.add_argument("--params", default="", help="flat .npz of JAX params")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seconds", type=float, default=4.0,
+                        help="length of the synthetic input without --wav")
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--cohorts", type=int, default=2)
+    parser.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    parser.add_argument("--backend", choices=["grid", "step"], default="grid")
+    parser.add_argument("--device", default=None)
+    ns = parser.parse_args(args)
+
+    device = resolve_device(ns.device)
+    if ns.params:
+        params = load_params_npz(ns.params, device=device)
+    else:
+        params = init_params(torch.Generator().manual_seed(ns.seed), device=device)
+    if ns.wav:
+        wav, fs = read_wav(ns.wav)
+        if wav.ndim > 1:
+            wav = wav[:, 0]
+    else:
+        fs = 16000
+        rng = np.random.default_rng(ns.seed)
+        n = int(ns.seconds * fs)
+        tt = np.arange(n) / fs
+        wav = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
+               + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    dtype = torch.bfloat16 if ns.dtype == "bf16" else torch.float32
+    hop = 256
+    hops = len(wav) // hop
+    wav = torch.from_numpy(np.ascontiguousarray(wav[: hops * hop], np.float32))
+
+    cls = GridFusedGTCRNMicro if ns.backend == "grid" else FusedGTCRNMicro
+    runs = {}
+    for label, model in (("kernel", cls(params, dtype=dtype, device=device)),
+                         ("plain", LayoutGTCRNMicro(params, dtype=dtype, device=device))):
+        srv = CohortServer(model, params, batch=ns.batch, n_cohorts=ns.cohorts,
+                           dtype=dtype, mode="audio", device=device)
+        cohort = srv.next_cohort()
+        slot = srv.admit(cohort)
+        feed = torch.zeros((ns.batch, hop), dtype=dtype, device=device)
+        zeros = torch.zeros_like(feed)
+        outs = []
+        for t in range(hops + 1):  # +1 step flushes the one-hop OLA tail
+            feed[slot] = wav[hop * t : hop * (t + 1)] if t < hops else 0.0
+            for c in range(srv.n_cohorts):  # phase-ordered interval
+                got = srv.step(c, feed if c == cohort else zeros)
+                if c == cohort:
+                    outs.append(got[slot].float().cpu())
+        runs[label] = torch.cat(outs)[hop:]  # drop the center-trim chunk
+        print(f"{label}: served {hops} hops through cohort {cohort} slot {slot} "
+              f"({srv.n_cohorts} cohorts x {srv.batch} slots, {ns.dtype}, {device})")
+    note = " (on the CPU both run the plain version)" if device.type == "cpu" else ""
+    print(f"kernel vs plain SNR: {_snr_db(runs['plain'], runs['kernel']):.1f} dB{note}")
+    if ns.out:
+        write_wav(ns.out, runs["kernel"].numpy(), fs)
+        print(f"wrote {ns.out}")
+
+
+if __name__ == "__main__":
+    main()

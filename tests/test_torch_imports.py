@@ -1,0 +1,68 @@
+"""The port stands alone: no module of gtcrn_micro_tpu_torch, and not
+chip_smoke.py, imports jax or the JAX package.
+
+The check reads the sources (an AST scan) rather than ``sys.modules``: the
+test process imports both packages, and a host may pre-import jax.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "gtcrn_micro_tpu")
+
+
+def _sources():
+    files = sorted((ROOT / "gtcrn_micro_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _sources()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
+    from gtcrn_micro_tpu_torch import resolve_device
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
+    from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro
+    from gtcrn_micro_tpu_torch.serve import CohortServer
+
+    params = init_params(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FusedGTCRNMicro(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CohortServer(None, params, batch=8, n_cohorts=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cpu_wrapper_never_counts_a_launch():
+    """On CPU tensors the wrappers take the plain version and launch nothing."""
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
+    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+
+    m = GridFusedGTCRNMicro(init_params(device="cpu"), device="cpu")
+    st = m.init_state(8)
+    m.step(None, st, torch.zeros((8, 257, 1, 2)))
+    assert m.launches == 0 and st["step"] == 1
