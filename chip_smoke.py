@@ -11,15 +11,20 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
 
 1. device  -- a CUDA card is required; prints its name and power limit.
 2. build   -- compiles every kernel (one nvcc per source, in parallel).
-3. kernels -- each kernel against its plain PyTorch version on the card:
+3. kernels -- what each compiled kernel uses (registers, local and shared
+              bytes, CTAs per SM, per storage dtype; any local memory, i.e.
+              a spill or a stack frame, fails), then each kernel against its
+              plain PyTorch version on the card:
               f32 at B=256 over 24 frames (max-abs <= 1e-4, SNR >= 80 dB:
               another summation order across ~40 layers and a 24-step
               recurrence), bf16 storage against the f32 plain version
               (reported; SNR >= 30 dB as a sanity bound), and one step at
               the served shape (B=8192, bf16) from the same state (every
               value within one bf16 rounding step, 2^-7 of the largest
-              magnitude).  Times each kernel, its plain version and its
-              bound at the served shape.
+              magnitude).  With ``--parity`` the run stops here.  Then
+              times each kernel at the served shape and at one full wave
+              (SMs x CTAs per SM x TILE streams), its plain version, and
+              its bound at both.
 4. serve   -- CohortServer(mode="audio", dft="mxu", bf16), batch 8192 x 2
               cohorts, 64 round-robin intervals of seeded audio on kernel
               B2 (the default backend), then 8 on kernel B1: finite output,
@@ -65,8 +70,10 @@ def snr_db(ref, x) -> float:
     return 10 * math.log10(max(float((ref ** 2).sum()), 1e-30) / max(err, 1e-30))
 
 
-def cuda_ms(torch, fn, n=20, warm=3) -> float:
-    """Median device time of one call of ``fn``, by CUDA events."""
+def cuda_ms(torch, fn, n=20, warm=3, reps=1) -> float:
+    """Median over ``n`` samples of the device time of one call of ``fn``, by
+    CUDA events around ``reps`` back-to-back calls (reps > 1 hides the host's
+    time to issue a call behind the device's work on the one before)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -75,10 +82,11 @@ def cuda_ms(torch, fn, n=20, warm=3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -198,13 +206,23 @@ def main() -> None:
 
     params = init_params(torch.Generator().manual_seed(0), device=dev)
     kernels = {
-        "fused_step_b1": dict(cls=FusedGTCRNMicro, source="gtcrn_micro_tpu_torch/csrc/fused_step.cu",
+        "fused_step_b1": dict(cls=FusedGTCRNMicro, lib="fused_step", source="gtcrn_micro_tpu_torch/csrc/fused_step.cu",
                               replaces="gtcrn_micro_tpu/ops/fused_step.py:402"),
-        "fused_grid_b2": dict(cls=GridFusedGTCRNMicro, source="gtcrn_micro_tpu_torch/csrc/fused_grid.cu",
+        "fused_grid_b2": dict(cls=GridFusedGTCRNMicro, lib="fused_grid", source="gtcrn_micro_tpu_torch/csrc/fused_grid.cu",
                               replaces="gtcrn_micro_tpu/ops/fused_grid.py:167"),
     }
 
     # -- 3. kernels ------------------------------------------------------
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, k in kernels.items():
+        k["attrs"] = _build.kernel_attrs(k["lib"])
+        for dtn, a in k["attrs"].items():
+            say("kernels", f"{name} {dtn}: {a['regs']} registers, {a['local_bytes']} local bytes "
+                           f"per thread, {a['smem_bytes']} shared bytes per CTA, "
+                           f"{a['ctas_per_sm']} CTAs per SM ({n_sm} SMs)")
+            if a["local_bytes"] > 0:
+                fail(f"{name} {dtn} uses local memory (spills or a stack frame)")
+
     B, T = 256, 24
     g = torch.Generator().manual_seed(1)
     spec = (torch.randn((B, 257, T, 2), generator=g) * 0.2).to(dev)
@@ -252,22 +270,14 @@ def main() -> None:
         st0[n].copy_(torch.rand(st0[n].shape, generator=g).mul_(0.6).sub_(0.3))
     st0["step"] = 5
 
-    def clone(st):
-        return {k: (v.clone() if torch.is_tensor(v) else v) for k, v in st.items()}
+    def clone(st, b=None):
+        return {k: (v[..., :b].clone() if torch.is_tensor(v) else v) for k, v in st.items()}
 
     plain_st = clone(st0)
     yp, plain_st = plain16.step(None, plain_st, spec_s)
-    timing_st = clone(st0)  # steps on it advance its counter; timing only
-    plain_ms = cuda_ms(torch, lambda: plain16.step(None, timing_st, spec_s), n=10)
-    flops = 2 * macs * BS
-    nbytes = esz * (BS * (2 * 257 * 2 + ring_read + ring_written) + plain16.weights.buf.numel())
-    bound_ms = max(nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS) * 1e3
-    bound_by = "bytes" if nbytes / H100_HBM_BYTES > flops / H100_F32_FLOPS else "operations"
-    say("kernels", f"served shape B={BS} bf16: {macs} MAC/stream/frame -> {flops / 1e9:.3f} GFLOP "
-                   f"f32, {nbytes / 1e6:.1f} MB moved; bound {bound_ms:.4f} ms by {bound_by} "
-                   f"(H100 SXM peaks: 67 TFLOP/s f32, 3.35 TB/s)")
+    models = {}
     for name, k in kernels.items():
-        model = k["cls"](params, dtype=dt, device=dev)
+        model = models[name] = k["cls"](params, dtype=dt, device=dev)
         st = clone(st0)
         yk, st = model.step(None, st, spec_s)
         torch.cuda.synchronize()
@@ -276,29 +286,63 @@ def main() -> None:
         for n, *_ in RING_DEFS:
             d = float((st[n].float() - plain_st[n].float()).abs().max())
             ok = ok and d <= 2 ** -7 * float(plain_st[n].float().abs().max())
-        # time the bare kernel launch (not through the counted wrapper)
-        out = torch.empty_like(spec_s)
-        t = st["step"]
-        if name == "fused_step_b1":
-            taps, frames = [], []
-            for n, L, d, shape in RING_DEFS:
-                s0, s1 = _slots(t, L, d)
-                taps += [st[n][s0], st[n][s1]]
-                frames.append(torch.empty(shape + (BS,), dtype=dt, device=dev))
-            launch = lambda: _build.launch_b1(model.weights, spec_s, out, taps, frames)
-        else:
-            rings = [st[n] for n, *_ in RING_DEFS]
-            launch = lambda: _build.launch_b2(model.weights, spec_s, out, rings, t)
-        ms = cuda_ms(torch, launch)
-        wrapper_ms = cuda_ms(torch, lambda: model.step(None, timing_st, spec_s), n=10)
-        k.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 wrapper_ms=wrapper_ms)
+        k["max_abs_err"] = err
         say("kernels", f"{name} B={BS} bf16 one step vs plain: max-abs {err:.3g} "
-                       f"(bound one bf16 step) {'ok' if ok else 'FAILED'}; kernel {ms:.3f} ms, "
-                       f"model step {wrapper_ms:.3f} ms, plain step {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)")
+                       f"(bound one bf16 step, rings too) {'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"{name} disagrees with its plain version at the served shape")
-    del st0, plain_st, timing_st, yp
+    if "--parity" in sys.argv[1:]:
+        say("done", f"build and parity ok in {time.perf_counter() - t_start:.1f} s (--parity: "
+                    f"no timing, no serving)")
+        sys.exit(0)
+
+    def bound(b):
+        """(ms, by) the card needs at least for one step of b streams."""
+        flops = 2 * macs * b
+        nbytes = esz * b * (2 * 257 * 2 + ring_read + ring_written) + 4 * kw_floats
+        by = "bytes" if nbytes / H100_HBM_BYTES > flops / H100_F32_FLOPS else "operations"
+        return max(nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS) * 1e3, by, flops, nbytes
+
+    kw_floats = models["fused_grid_b2"].kernel_weights.buf.numel()
+    bound_ms, bound_by, flops, nbytes = bound(BS)
+    say("kernels", f"served shape B={BS} bf16: {macs} MAC/stream/frame -> {flops / 1e9:.3f} GFLOP "
+                   f"f32, {nbytes / 1e6:.1f} MB moved; bound {bound_ms:.4f} ms by {bound_by} "
+                   f"(H100 SXM peaks: 67 TFLOP/s f32, 3.35 TB/s)")
+    timing_st = clone(st0)  # steps on it advance its counter; timing only
+    plain_ms = cuda_ms(torch, lambda: plain16.step(None, timing_st, spec_s), n=10)
+
+    def bare_launch(name, model, st, spec_b, out):
+        """The kernel's launch alone, not through the counted wrapper."""
+        t = st["step"]
+        if name == "fused_step_b1":
+            taps = []
+            for n, L, d, _shape in RING_DEFS:
+                s0, s1 = _slots(t, L, d)
+                taps += [st[n][s0], st[n][s1]]
+            return lambda: _build.launch_b1(model.kernel_weights, spec_b, out, taps, taps[0::2])
+        rings = [st[n] for n, *_ in RING_DEFS]
+        return lambda: _build.launch_b2(model.kernel_weights, spec_b, out, rings, t)
+
+    for name, k in kernels.items():
+        model = models[name]
+        wave = n_sm * k["attrs"]["bfloat16"]["ctas_per_sm"] * _build.TILE
+        st = clone(st0)
+        ms = cuda_ms(torch, bare_launch(name, model, st, spec_s, torch.empty_like(spec_s)),
+                     n=10, reps=10)
+        st_w = clone(st0, wave)
+        spec_w = spec_s[:wave].contiguous()
+        wave_ms = cuda_ms(torch, bare_launch(name, model, st_w, spec_w, torch.empty_like(spec_w)),
+                          n=10, reps=10)
+        wave_bound_ms = bound(wave)[0]
+        wrapper_ms = cuda_ms(torch, lambda: model.step(None, timing_st, spec_s), n=10)
+        k.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 wrapper_ms=wrapper_ms, wave_batch=wave, wave_ms=wave_ms,
+                 wave_bound_ms=wave_bound_ms)
+        say("kernels", f"{name} B={BS} bf16: kernel {ms:.3f} ms, model step {wrapper_ms:.3f} ms, "
+                       f"plain step {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                       f"({bound_ms / ms:.1%} of it); one wave B={wave}: kernel {wave_ms:.3f} ms, "
+                       f"bound {wave_bound_ms:.4f} ms ({wave_bound_ms / wave_ms:.1%} of it)")
+    del st0, plain_st, timing_st, yp, models
 
     # -- 4. serve --------------------------------------------------------
     K, intervals = 2, 64
@@ -390,7 +434,10 @@ def main() -> None:
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
              "library_ms": None, "f32_max_abs_err": k["f32_max_abs_err"],
              "f32_snr_db": k["f32_snr_db"], "bf16_snr_db": k["bf16_snr_db"],
-             "wrapper_ms": k["wrapper_ms"]}
+             "wrapper_ms": k["wrapper_ms"], "wave_batch": k["wave_batch"],
+             "wave_ms": k["wave_ms"], "wave_bound_ms": k["wave_bound_ms"],
+             **{key: {dtn: a[key] for dtn, a in k["attrs"].items()}
+                for key in ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")}}
             for name, k in kernels.items()]
     say("done", f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -38,17 +38,22 @@ _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _SIGNATURES = {
-    # int gtcrn_fused_step_b1(dtype, W, offsets, spec, out,
+    # int gtcrn_fused_step_b1(dtype, W, offsets, wlen, spec, out,
     #                         taps[40], frames[20], B, stream)
     "fused_step": ("gtcrn_fused_step_b1",
-                   [_I, _P, ctypes.POINTER(_I), _P, _P, _PP, _PP, _I, _P]),
-    # int gtcrn_fused_grid_b2(dtype, W, offsets, spec, out,
+                   [_I, _P, ctypes.POINTER(_I), _I, _P, _P, _PP, _PP, _I, _P]),
+    # int gtcrn_fused_grid_b2(dtype, W, offsets, wlen, spec, out,
     #                         rings[20], t, B, stream)
     "fused_grid": ("gtcrn_fused_grid_b2",
-                   [_I, _P, ctypes.POINTER(_I), _P, _P, _PP, _I, _I, _P]),
+                   [_I, _P, ctypes.POINTER(_I), _I, _P, _P, _PP, _I, _I, _P]),
 }
+# int gtcrn_<source>_attrs(int out[8]): per dtype (float32, bfloat16) the
+# kernel's registers per thread, local bytes per thread, shared bytes per CTA
+# and resident CTAs per SM
+_ATTRS = ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")
 
 _libs: dict = {}
+_attr_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -108,8 +113,23 @@ def _load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
+        attrs = getattr(lib, f"gtcrn_{name}_attrs")
+        attrs.argtypes = [ctypes.POINTER(_I)]
+        attrs.restype = ctypes.c_int
+        _libs[name], _attr_fns[name] = fn, attrs
     return _libs[name]
+
+
+def kernel_attrs(name: str) -> dict:
+    """What the compiled kernel of source ``name`` uses, per storage dtype:
+    ``{"float32": {"regs", "local_bytes", "smem_bytes", "ctas_per_sm"},
+    "bfloat16": {...}}`` from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    _load(name)
+    vals = (ctypes.c_int * 8)()
+    _raise_on(_attr_fns[name](vals), f"gtcrn_{name}_attrs")
+    return {dt: dict(zip(_ATTRS, vals[4 * i : 4 * i + 4]))
+            for i, dt in enumerate(("float32", "bfloat16"))}
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -134,17 +154,21 @@ def check_tile(tile: int) -> None:
         raise ValueError(f"the kernels are compiled for tile={TILE}, got {tile}")
 
 
-def _common(packed, spec: torch.Tensor, out: torch.Tensor):
+def _common(kw, spec: torch.Tensor, out: torch.Tensor):
+    """Check the arguments every kernel takes: ``kw`` is the
+    :class:`~gtcrn_micro_tpu_torch.ops.fused_step.KernelWeights` (float32
+    whatever the storage dtype), spec and out in the storage dtype."""
     if spec.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernels take float32 or bfloat16, got {spec.dtype}")
-    for t, what in ((packed.buf, "weights"), (out, "out")):
-        if t.dtype != spec.dtype or t.device != spec.device:
-            raise ValueError(f"{what} must be {spec.dtype} on {spec.device}")
-    if not (spec.is_contiguous() and out.is_contiguous() and packed.buf.is_contiguous()):
+    if out.dtype != spec.dtype or out.device != spec.device:
+        raise ValueError(f"out must be {spec.dtype} on {spec.device}")
+    if kw.buf.dtype != torch.float32 or kw.buf.device != spec.device or kw.buf.dim() != 1:
+        raise ValueError(f"kernel weights must be 1-D float32 on {spec.device}")
+    if not (spec.is_contiguous() and out.is_contiguous() and kw.buf.is_contiguous()):
         raise ValueError("spec, out and weights must be contiguous")
-    offs = (ctypes.c_int * len(packed.offsets))(*packed.offsets)
+    offs = (ctypes.c_int * len(kw.offsets))(*kw.offsets)
     stream = ctypes.c_void_p(torch.cuda.current_stream(spec.device).cuda_stream)
-    return _DTYPE_CODE[spec.dtype], offs, stream
+    return _DTYPE_CODE[spec.dtype], offs, kw.buf.numel(), stream
 
 
 def _raise_on(code: int, what: str) -> None:
@@ -153,25 +177,27 @@ def _raise_on(code: int, what: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def launch_b1(packed, spec, out, taps: list, frames: list) -> None:
-    """Kernel B1: 40 tap frames in, 20 new frames out (all ``(*frame, B)``)."""
-    dt, offs, stream = _common(packed, spec, out)
+def launch_b1(kw, spec, out, taps: list, frames: list) -> None:
+    """Kernel B1: 40 tap frames in, 20 new frames out (all ``(*frame, B)``).
+    A frame may be its ring's tap 0: the kernel writes it after its last
+    read of that tap."""
+    dt, offs, wlen, stream = _common(kw, spec, out)
     tap_arr = (ctypes.c_void_p * len(taps))(*[t.data_ptr() for t in taps])
     frame_arr = (ctypes.c_void_p * len(frames))(*[f.data_ptr() for f in frames])
     fn = _load("fused_step")
     with torch.cuda.device(spec.device):
-        code = fn(dt, _ptr(packed.buf), offs, _ptr(spec), _ptr(out),
+        code = fn(dt, _ptr(kw.buf), offs, wlen, _ptr(spec), _ptr(out),
                   tap_arr, frame_arr, spec.shape[0], stream)
     _raise_on(code, "gtcrn_fused_step_b1")
 
 
-def launch_b2(packed, spec, out, rings: list, t: int) -> None:
+def launch_b2(kw, spec, out, rings: list, t: int) -> None:
     """Kernel B2: reads each ring's taps at slots (t mod L, (t+d) mod L) and
     writes the new frame at slot t mod L in place."""
-    dt, offs, stream = _common(packed, spec, out)
+    dt, offs, wlen, stream = _common(kw, spec, out)
     ring_arr = (ctypes.c_void_p * len(rings))(*[r.data_ptr() for r in rings])
     fn = _load("fused_grid")
     with torch.cuda.device(spec.device):
-        code = fn(dt, _ptr(packed.buf), offs, _ptr(spec), _ptr(out),
+        code = fn(dt, _ptr(kw.buf), offs, wlen, _ptr(spec), _ptr(out),
                   ring_arr, t, spec.shape[0], stream)
     _raise_on(code, "gtcrn_fused_grid_b2")

@@ -22,5 +22,5 @@ class GridFusedGTCRNMicro(FusedGTCRNMicro):
     :class:`FusedGTCRNMicro`; ``launches`` counts kernel launches."""
 
     def _launch(self, spec, out, rings, t):
-        _build.launch_b2(self.weights, spec, out, rings, t)
+        _build.launch_b2(self.kernel_weights, spec, out, rings, t)
         self.launches += 1

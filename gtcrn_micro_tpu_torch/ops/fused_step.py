@@ -9,14 +9,18 @@ Counterpart of the JAX package's ``ops/fused_step.py``.  What is here:
 - :func:`pack_weights`: the 158 kernel weights in the JAX order, BatchNorm
   folded, in ONE contiguous buffer with an offset table (no Mosaic trailing
   singleton dims).  :func:`unpack` reverses it.
+- :func:`kernel_weights`: the same entries as the CUDA kernels read them:
+  float32, 16-byte aligned, the ERB matrices as band tables
+  (:func:`band_table`).
 - :func:`forward_plain`: the plain PyTorch version of the kernel on the
   ``(C, F, B)`` layout, computed in float32 like the kernel.
 - :class:`LayoutGTCRNMicro`: a serving model whose step is the plain version
   on any device; the reference the kernels are held against.
 - :class:`FusedGTCRNMicro`: the same step protocol with kernel B1 on CUDA
   tensors.  Its wrapper takes the two tap frames of each ring (slots
-  ``t mod L`` and ``(t+d) mod L``), launches B1 once over all stream tiles,
-  writes the 20 returned frames at slot ``t mod L`` and advances the counter.
+  ``t mod L`` and ``(t+d) mod L``), launches B1 once over all stream tiles
+  with slot ``t mod L`` as each new frame's destination, and advances the
+  counter.
 """
 
 from __future__ import annotations
@@ -156,6 +160,57 @@ def pack_weights(params, dtype=torch.float32, device=None) -> PackedWeights:
     flat = np.concatenate([a.reshape(-1) for a in arrs])
     buf = torch.from_numpy(flat).to(resolve_device(device), dtype)
     return PackedWeights(buf, offsets, tuple(a.shape for a in arrs))
+
+
+def band_table(m: np.ndarray) -> np.ndarray:
+    """A matrix whose rows are zero outside one span, as the kernels' band
+    table: per row the first column of the span from its first to its last
+    nonzero, the span's length and where its weights start (from the table's
+    start), then every row's span of weights, contiguously.  All float32 (the
+    integers are exact); an all-zero row has length 0."""
+    starts, spans = [], []
+    for r in np.asarray(m, np.float32):
+        nz = np.flatnonzero(r)
+        first, end = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        starts.append(first)
+        spans.append(r[first:end])
+    lens = [w.size for w in spans]
+    woff = 3 * len(spans) + np.cumsum([0] + lens[:-1])
+    head = np.stack([starts, lens, woff], axis=1).reshape(-1)
+    return np.concatenate([head.astype(np.float32)] + spans)
+
+
+# The kernels' entry order: the pack order with bs_w (entry 1, used last) at
+# the end, so that the entries of each layer the kernels stage into shared
+# memory together lie in one span of the buffer.
+KERNEL_ORDER = (0, *range(2, N_WEIGHTS), 1)
+_BANDED = (0, 1)  # bm_w, bs_w: stored as band tables
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelWeights:
+    """The kernels' weight buffer: float32 ``buf`` holding the 158 entries of
+    :class:`PackedWeights` at ``offsets`` (pack order; each a multiple of 4
+    floats, 16 bytes), bm_w and bs_w as :func:`band_table`\\ s, the others
+    exactly as packed, widened to float32."""
+
+    buf: torch.Tensor
+    offsets: tuple
+
+
+def kernel_weights(packed: PackedWeights) -> KernelWeights:
+    """Build the kernels' weight buffer from the packed weights, on their
+    device.  bf16 values widen to float32 exactly."""
+    entries = [e.detach().float().cpu().numpy() for e in packed.entries()]
+    offsets, parts, n = [0] * N_WEIGHTS, [], 0
+    for i in KERNEL_ORDER:
+        a = band_table(entries[i]) if i in _BANDED else entries[i].reshape(-1)
+        offsets[i] = n
+        pad = -a.size % 4
+        parts += [a, np.zeros(pad, np.float32)]
+        n += a.size + pad
+    buf = torch.from_numpy(np.concatenate(parts)).to(packed.buf.device)
+    return KernelWeights(buf, tuple(offsets))
 
 
 def unpack(packed: PackedWeights) -> dict:
@@ -390,9 +445,10 @@ class FusedGTCRNMicro(LayoutGTCRNMicro):
     tensors (the plain version on CPU tensors).  ``tile`` is the number of
     streams one CTA serves; ``launches`` counts kernel launches."""
 
-    def __init__(self, params, dtype=torch.float32, tile: int = 8, device=None):
+    def __init__(self, params, dtype=torch.float32, tile: int = _build.TILE, device=None):
         _build.check_tile(tile)
         super().__init__(params, dtype, device)
+        self.kernel_weights = kernel_weights(self.weights)
         self.launches = 0
 
     def step(self, params, state: dict, spec: torch.Tensor):
@@ -410,15 +466,12 @@ class FusedGTCRNMicro(LayoutGTCRNMicro):
         return out, state
 
     def _launch(self, spec, out, rings, t):
-        """B1: pass the two tap frames of each ring, get the 20 new frames
-        back and write them at slot t mod L."""
-        taps, frames = [], []
-        for ring, (_name, L, d, shape) in zip(rings, RING_DEFS):
+        """B1: pass the two tap frames of each ring; each new frame goes to
+        the slot of its ring's tap 0 (t mod L), which the kernel writes only
+        after its last read of that tap, so the rings update in place."""
+        taps = []
+        for ring, (_name, L, d, _shape) in zip(rings, RING_DEFS):
             s0, s1 = _slots(t, L, d)
             taps += [ring[s0], ring[s1]]
-            frames.append(torch.empty(shape + (spec.shape[0],), dtype=spec.dtype,
-                                      device=spec.device))
-        _build.launch_b1(self.weights, spec, out, taps, frames)
+        _build.launch_b1(self.kernel_weights, spec, out, taps, taps[0::2])
         self.launches += 1
-        for ring, frame, (_name, L, d, _shape) in zip(rings, frames, RING_DEFS):
-            ring[_slots(t, L, d)[0]].copy_(frame)
