@@ -35,6 +35,20 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               device's idle share.
 5. slice parity -- the same server in f32 at batch 64 for 24 hops on the
               kernel backends and on the plain backend: SNR >= 80 dB.
+6. layered -- the layered model (``models.gtcrn_micro.GTCRNMicro``: cuDNN
+              convolutions and cuBLAS products, no kernel of this repo):
+              f32 at B=256 over 24 frames, its T=1 ring step against kernel
+              B2 and its offline ``apply`` against that step (max-abs <=
+              1e-4, SNR >= 80 dB); over 32 frames, ring chunks of T=4 and
+              T=16 and the l2_psum state against ``apply`` (SNR >= 80 dB);
+              ``apply`` bit-identical with the global TF32 flags on; the
+              layered bf16 audio server at 8,192 x 2 cohorts with
+              chunk_hops 1 and 4 (finite, a silent slot exactly 0, reset on
+              axis 0), its step timed (ms per step and per hop) and its
+              device idle share; ``eval.infer.enhance_wavs`` on 32 seeded
+              wavs of 3-10 s (wall time, real-time factor, silence exactly
+              0, one wav >= 60 dB against the f32 layered server outside
+              its first 96 and last 2 hops).
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -90,23 +104,52 @@ def cuda_ms(torch, fn, n=20, warm=3, reps=1) -> float:
     return statistics.median(times)
 
 
-def profile_split(torch, srv, chunk, K, n=10) -> str:
-    """Device time per served step by kernel group (torch.profiler), and the
-    device's idle share of the host wall clock over ``n`` back-to-back
-    steps."""
+def device_events(torch, fn, n):
+    """The device operations of ``n`` back-to-back calls ``fn(i)``
+    (torch.profiler), by start time, and the host wall clock (us) over
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
-            srv.step(i % K, chunk)
+            fn(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    glue = "glue (cat, copies, casts, OLA add)"
-    groups = {"STFT GEMM": 0.0, "kernel": 0.0, "iSTFT GEMM": 0.0, glue: 0.0}
     evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
+    return evs, wall_us
+
+
+def idle_share(torch, fn, n=10, top=5) -> str:
+    """Device busy time, device operations and the device's idle share of
+    the host wall clock per call, over ``n`` back-to-back calls, and the
+    ``top`` device operations by their device time per call."""
+    evs, wall_us = device_events(torch, fn, n)
+    busy = sum(e.time_range.elapsed_us() for e in evs)
+    if busy == 0:
+        return "torch.profiler recorded no device time: idle share not measured"
+    by_name: dict[str, list] = {}
+    for e in evs:
+        acc = by_name.setdefault(e.name[:48], [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    tops = "; ".join(f"{name} x{c / n:.0f} {us / n / 1e3:.3f} ms" for name, (c, us) in ranked)
+    return (f"device busy {busy / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms wall per step, "
+            f"{len(evs) / n:.0f} device operations per step, idle share "
+            f"{1 - busy / wall_us:.1%} (torch.profiler, {n} steps, host clock, profiler on); "
+            f"top by device time per step: {tops}")
+
+
+def profile_split(torch, srv, chunk, K, n=10) -> str:
+    """Device time per served step by kernel group (torch.profiler), and the
+    device's idle share of the host wall clock over ``n`` back-to-back
+    steps."""
+    evs, wall_us = device_events(torch, lambda i: srv.step(i % K, chunk), n)
+    glue = "glue (cat, copies, casts, OLA add)"
+    groups = {"STFT GEMM": 0.0, "kernel": 0.0, "iSTFT GEMM": 0.0, glue: 0.0}
     # between two fused kernels the GEMM launches come in two runs split by
     # glue: the iSTFT of one step, then the STFT of the next (a GEMM may take
     # more than one launch); before the first kernel there is only an STFT
@@ -161,6 +204,161 @@ def work_per_stream(RING_DEFS, W):
             + 4 * 257)                        # complex mask
     frame = sum(math.prod(shape) for _n, _L, _d, shape in RING_DEFS)
     return macs, 2 * frame, frame
+
+
+def layered_phase(torch, dev, params, spec, card) -> dict:
+    """Phase 6: the layered model against kernel B2 and against itself, its
+    bf16 cohort server, and the offline enhancement entry point.  Returns
+    the numbers it measured."""
+    import tempfile
+
+    import numpy as np
+
+    from gtcrn_micro_tpu_torch.eval.infer import enhance_wavs
+    from gtcrn_micro_tpu_torch.io.wav import read_wav, write_wav
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+    from gtcrn_micro_tpu_torch.serve import CohortServer
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    model = GTCRNMicro.from_params(params, dtype=f32, device=dev)
+    res = {}
+
+    def stream(m, x, T=1, **opts):
+        st = m.init_state(x.shape[0], **opts)
+        outs = [m.step(None, st, x[:, :, t : t + T])[0] for t in range(0, x.shape[2], T)]
+        return torch.cat(outs, dim=2)
+
+    def check(label, ref, got, max_abs=True):
+        err, snr = float((got - ref).abs().max()), snr_db(ref, got)
+        ok = snr >= 80 and (err <= 1e-4 or not max_abs)
+        bound = "1e-4, 80 dB" if max_abs else "80 dB"
+        say("layered", f"{label}: max-abs {err:.3g}, SNR {snr:.1f} dB (bound {bound}) "
+                       f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"layered: {label}")
+        res[label] = {"max_abs": err, "snr_db": snr}
+
+    # f32 parity: B2, the ring step, apply
+    B, T = spec.shape[0], spec.shape[2]
+    with torch.no_grad():
+        b2 = stream(GridFusedGTCRNMicro(params, dtype=f32, device=dev), spec)
+        ring = stream(model, spec)
+        off = model.apply(spec)
+    torch.cuda.synchronize()
+    check(f"f32 B={B} {T} frames, ring step T=1 vs kernel B2", b2, ring)
+    check(f"f32 B={B} {T} frames, apply vs ring step T=1", ring, off)
+    g = torch.Generator().manual_seed(3)
+    spec32 = (torch.randn((B, 257, 32, 2), generator=g) * 0.2).to(dev)
+    with torch.no_grad():
+        off32 = model.apply(spec32)
+        for label, Tc, opts in (("ring T=4", 4, {}), ("ring T=16", 16, {}),
+                                ("l2_psum T=1", 1, {"l2_psum": True})):
+            check(f"f32 B={B} 32 frames, {label} vs apply", off32,
+                  stream(model, spec32, Tc, **opts), max_abs=False)
+
+    # the forward turns TF32 off whatever the caller's flags are
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    mm.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            off_tf32 = model.apply(spec)
+        torch.cuda.synchronize()
+        kept = mm.allow_tf32 and cudnn.allow_tf32
+    finally:
+        mm.allow_tf32 = cudnn.allow_tf32 = False
+    same = torch.equal(off_tf32, off)
+    say("layered", f"f32 apply with the global TF32 flags on: bit-identical {same}, flags "
+                   f"restored {kept} {'ok' if same and kept else 'FAILED'}")
+    if not (same and kept):
+        fail("layered: the f32 forward depends on the global TF32 flags")
+    del b2, ring, off, off32, off_tf32
+
+    # the layered bf16 audio server
+    BS, K, n_int = 8192, 2, 8
+    ga = torch.Generator(device=dev).manual_seed(4)
+    mb = GTCRNMicro.from_params(params, dtype=bf16, device=dev)
+    for Tc in (1, 4):
+        srv = CohortServer(mb, None, batch=BS, n_cohorts=K, dtype=bf16, mode="audio",
+                           dft="mxu", device=dev, chunk_hops=Tc)
+        finite, silent_max = True, 0.0
+        for _ in range(n_int):
+            for c in range(K):
+                chunk = torch.randn((BS, 256 * Tc), generator=ga, device=dev).mul_(0.3).to(bf16)
+                if c == 0:
+                    chunk[5] = 0
+                out = srv.step(c, chunk)
+                finite = finite and bool(torch.isfinite(out).all())
+                if c == 0:
+                    silent_max = max(silent_max, float(out[5].abs().max()))
+        slot, st, dsp = 7, srv._states[1], srv._dsp[1]
+        rows = [v for k, v in st.items() if k != "step"] + [dsp.in_buf, dsp.ola_buf]
+        busy = all(float(v[slot].abs().max()) > 0 for v in rows)
+        srv.reset_slot(1, slot)
+        zeroed = all(float(v[slot].abs().max()) == 0 for v in rows)
+        kept = all(float(v[slot - 1].abs().max()) > 0 for v in rows)
+        ok = finite and silent_max == 0.0 and busy and zeroed and kept
+        say("layered", f"server bf16 chunk_hops={Tc}: {n_int} intervals x {K} cohorts x {BS} "
+                       f"streams: finite {finite}, silent slot max {silent_max}, reset of slot "
+                       f"{slot} on axis 0 of {len(rows)} state and DSP tensors: zeroed {zeroed}, "
+                       f"neighbour kept {kept} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"layered server at chunk_hops={Tc} failed its checks")
+        chunk = torch.randn((BS, 256 * Tc), generator=ga, device=dev).mul_(0.3).to(bf16)
+        step_ms = cuda_ms(torch, lambda: srv.step(0, chunk), n=20, warm=3)
+        res[f"served_step_ms_T{Tc}"] = step_ms
+        say("layered", f"served step B={BS} bf16 chunk_hops={Tc} (CUDA events, median of 20): "
+                       f"{step_ms:.3f} ms per step, {step_ms / Tc:.3f} ms per hop; card {card}")
+        say("layered", f"chunk_hops={Tc}: " + idle_share(torch, lambda i: srv.step(i % K, chunk)))
+        del srv
+    del mb
+
+    # offline enhancement of seeded wavs, and one of them against the server
+    rng = np.random.default_rng(6)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        paths, n_samples = [], 0
+        for i in range(32):
+            n = int(rng.uniform(3, 10) * 16000)
+            tt = np.arange(n) / 16000
+            x = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * tt)
+                 * (1 + np.sin(2 * np.pi * rng.uniform(1, 5) * tt))
+                 + 0.05 * rng.standard_normal(n))
+            paths.append(f"{d}/w{i:02d}.wav")
+            write_wav(paths[-1], np.zeros(n) if i == 0 else x, 16000)
+            n_samples += n
+        secs = []
+        for _ in range(2):  # the first call meets every bucket shape first
+            t0 = time.perf_counter()
+            enh = enhance_wavs(model, paths, batch_size=8, device=dev, progress=False)
+            secs.append(time.perf_counter() - t0)
+        audio_s = n_samples / 16000
+        res.update(enhance_wall_s=secs, enhance_audio_s=audio_s)
+        say("layered", f"enhance_wavs f32: 32 wavs, {audio_s:.1f} s of audio, batch 8: wall "
+                       f"{secs[0]:.2f} s first call, {secs[1]:.2f} s second: real-time factor "
+                       f"{secs[0] / audio_s:.4f} / {secs[1] / audio_s:.4f} "
+                       f"({audio_s / secs[1]:.0f}x real time); card {card}")
+        silent = float(np.abs(enh[paths[0]]).max())
+        x, _ = read_wav(paths[1])
+    n, Tc = len(x), 4
+    step = 256 * Tc
+    xs = torch.zeros(((n + 256) // step + 1) * step, device=dev)
+    xs[:n] = torch.from_numpy(x).to(dev)
+    srv = CohortServer(model, None, batch=1, n_cohorts=1, dtype=f32, mode="audio", dft="mxu",
+                       device=dev, chunk_hops=Tc)
+    served = torch.cat([srv.step(0, xs[None, i : i + step])[0] for i in range(0, len(xs), step)])
+    served = served[256 : 256 + n]  # one hop behind; the first hop is the center trim
+    lo, hi = 96 * 256, n - 2 * 256
+    snr = snr_db(torch.from_numpy(enh[paths[1]][lo:hi]).double(), served[lo:hi].cpu())
+    res.update(enhance_silent_max=silent, enhance_vs_server_snr_db=snr)
+    ok = silent == 0.0 and snr >= 60
+    say("layered", f"enhance_wavs: silent wav max {silent}; wav 1 ({n} samples) vs the f32 "
+                   f"layered server (chunk_hops {Tc}) outside its first 96 and last 2 hops: SNR "
+                   f"{snr:.1f} dB (bound 60 dB) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("layered: enhance_wavs")
+    return res
 
 
 def main() -> None:
@@ -428,6 +626,9 @@ def main() -> None:
                      f"{snr:.1f} dB (bound 80 dB) {'ok' if snr >= 80 else 'FAILED'}")
         if snr < 80:
             fail(f"slice parity through {name}")
+
+    # -- 6. layered -------------------------------------------------------
+    layered_phase(torch, dev, params, spec, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],

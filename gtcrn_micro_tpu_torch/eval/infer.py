@@ -1,0 +1,161 @@
+"""Bulk offline enhancement (reference infer.py:26-119).
+
+``python -m gtcrn_micro_tpu_torch.eval.infer -C configs/cfg_infer.yaml``
+
+Per wav: read -> resample to 16 kHz -> sqrt-Hann STFT -> the layered model's
+offline forward -> iSTFT -> length-match to clean -> write ``<uid>_enh.wav``;
+writes the ``inf.scp`` / ``ref.scp`` manifests the reference's eval stack
+reads (infer.py:113-119).
+
+As in the JAX package, wavs are padded to power-of-two frame buckets and
+batched within a bucket.  Each wav's tail is reflect-padded (torch.stft
+``center=True``) before the bucket's zero pad, so a wav enhanced in a batch
+matches the wav enhanced alone except for the overlap-add of the padding
+frames into its last ~2 hops.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from gtcrn_micro_tpu_torch import resolve_device
+from gtcrn_micro_tpu_torch.dsp.stft import istft, sqrt_hann_window, stft
+from gtcrn_micro_tpu_torch.io.wav import extract_fileid, read_wav, resample, write_wav
+
+FS = 16000
+
+
+def _bucket_frames(n_frames: int, min_bucket: int = 64) -> int:
+    b = min_bucket
+    while b < n_frames:
+        b *= 2
+    return b
+
+
+def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
+                 progress: bool = True) -> dict[str, np.ndarray]:
+    """Enhance wavs with ``model`` (a layered ``GTCRNMicro`` on ``device``)
+    in bucket-padded batches; returns path -> float32 waveform at 16 kHz."""
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model is on {model.device}, not on {dev}")
+    window = sqrt_hann_window(512, device=dev)
+
+    loaded: list[tuple[str, np.ndarray]] = []
+    for p in wav_paths:
+        x, fs = read_wav(p)
+        if x.ndim > 1:
+            x = x[:, 0]
+        if fs != FS:
+            x = resample(x, fs, FS)
+        loaded.append((p, x.astype(np.float32)))
+
+    buckets: dict[int, list[int]] = {}
+    for i, (_, x) in enumerate(loaded):
+        buckets.setdefault(_bucket_frames(len(x) // 256 + 1), []).append(i)
+
+    out: dict[str, np.ndarray] = {}
+    done = 0
+    for bucket, idxs in sorted(buckets.items()):
+        # a bucket holds wavs of (len // 256 + 1) <= bucket frames, i.e.
+        # len < bucket * 256 samples: no tail is cut
+        samples = bucket * 256
+        for j in range(0, len(idxs), batch_size):
+            chunk = idxs[j : j + batch_size]
+            batch = np.zeros((len(chunk), samples), np.float32)
+            for k, i in enumerate(chunk):
+                x = loaded[i][1]
+                n = len(x)
+                batch[k, :n] = x
+                # reflect-pad the true tail: x[n-2], x[n-3], ... (the JAX
+                # package's slice x[n-2 : n-2-r : -1] is empty when r = n-1)
+                r = min(256, samples - n, n - 1)
+                if r > 0:
+                    batch[k, n : n + r] = x[n - 2 - np.arange(r)]
+            with torch.no_grad():
+                spec = stft(torch.from_numpy(batch).to(dev), window)
+                enh = model.apply(spec.to(model.dtype)).float()
+                wavs = istft(enh, window, length=samples).cpu().numpy()
+            for k, i in enumerate(chunk):
+                path, x = loaded[i]
+                out[path] = wavs[k, : len(x)]
+            done += len(chunk)
+            if progress:
+                print(f"\renhanced {done}/{len(loaded)}", end="", flush=True)
+    if progress:
+        print()
+    return out
+
+
+def main(args=None) -> None:
+    """Enhance every wav of the config's ``test_dataset.noisy_dir`` into
+    ``network.enh_folder`` with the params of ``network.checkpoint`` (a flat
+    ``.npz`` of ``/``-joined param paths, ``io/params.load_params_npz``)."""
+    from gtcrn_micro_tpu_torch.io.params import load_params_npz
+    from gtcrn_micro_tpu_torch.models.registry import get_model
+    from gtcrn_micro_tpu_torch.utils.config import load_config
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-C", "--config", default="configs/cfg_infer.yaml")
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--device", default=None)
+    ns = parser.parse_args(args)
+    cfg = load_config(ns.config)
+    dev = resolve_device(ns.device)
+
+    noisy_dir = cfg["test_dataset"]["noisy_dir"]
+    clean_dir = cfg["test_dataset"].get("clean_dir")
+    enh_dir = cfg["network"]["enh_folder"]
+    os.makedirs(enh_dir, exist_ok=True)
+
+    ckpt = cfg["network"]["checkpoint"]
+    if not ckpt.endswith(".npz"):
+        raise ValueError(f"checkpoint {ckpt!r}: expected a .npz of params")
+    model = get_model(cfg.get("network_name", "gtcrn_micro"), device=dev,
+                      **cfg.get("network_config", {}))
+    model.load_params(load_params_npz(ckpt, device=dev))
+
+    wavs = sorted(os.path.join(noisy_dir, f) for f in os.listdir(noisy_dir)
+                  if f.endswith(".wav"))
+    enhanced = enhance_wavs(model, wavs, batch_size=ns.batch_size, device=dev)
+
+    inf_scp, ref_scp = [], []
+    for noisy_path in wavs:
+        uid = os.path.basename(noisy_path).split(".wav")[0]
+        enh = enhanced[noisy_path]
+
+        if clean_dir is not None:
+            fileid = extract_fileid(noisy_path)
+            if fileid is None:
+                raise RuntimeError(f"Unable to extract fileid: {noisy_path}")
+            ref_path = os.path.join(clean_dir, f"clean_fileid_{fileid}.wav")
+            if not os.path.exists(ref_path):
+                raise FileNotFoundError(ref_path)
+            clean, fs_c = read_wav(ref_path)
+            if fs_c != FS:
+                clean = resample(clean, fs_c, FS)
+            # length-match to clean (reference infer.py:98-102)
+            if len(enh) < len(clean):
+                enh = np.pad(enh, (0, len(clean) - len(enh)))
+            else:
+                enh = enh[: len(clean)]
+            ref_scp.append((uid, ref_path))
+
+        enh_path = os.path.join(enh_dir, uid + "_enh.wav")
+        write_wav(enh_path, enh, FS)
+        inf_scp.append((uid, enh_path))
+
+    with open(os.path.join(enh_dir, "inf.scp"), "w") as f:
+        f.writelines(f"{uid} {p}\n" for uid, p in inf_scp)
+    if ref_scp:
+        with open(os.path.join(enh_dir, "ref.scp"), "w") as f:
+            f.writelines(f"{uid} {p}\n" for uid, p in ref_scp)
+    print(f"wrote {len(inf_scp)} enhanced wavs + scp manifests to {enh_dir}")
+
+
+if __name__ == "__main__":
+    main()

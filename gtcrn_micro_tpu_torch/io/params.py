@@ -3,7 +3,8 @@
 - :func:`params_from_numpy`: a JAX params pytree given as nested numpy
   arrays (``jax.tree.map(np.asarray, params)``) -> the port's tensors.
 - :func:`load_params_npz`: a flat ``.npz`` keyed by ``/``-joined paths.
-- :func:`state_from_jax`: a JAX fused serving state -> the port's ring state.
+- :func:`state_from_jax`: a JAX serving state (fused or layered) -> the
+  port's state.
 """
 
 from __future__ import annotations
@@ -40,17 +41,38 @@ def load_params_npz(path: str, device=None) -> dict:
     return params_from_numpy(tree, device)
 
 
-def state_from_jax(state_np: dict, dtype=torch.float32, device=None) -> dict:
-    """JAX ``FusedGTCRNMicro`` / ``GridFusedGTCRNMicro`` / ``LayoutGTCRNMicro``
-    state (numpy arrays) -> the port's ring state ``{name: (L, *frame, B)}``
-    plus the integer ``step`` counter.
+# numpy has no bfloat16 or float8: JAX hands them over as ml_dtypes arrays,
+# which convert bit for bit through an integer view of the same width
+_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
-    - FusedGTCRNMicro rings are tile-major ``(L, n_tiles, *frame, tile)``;
-    - GridFusedGTCRNMicro rings are ``(L, *frame, B)`` with the frequency
-      axis of the (16, 33) frames padded to 40;
-    - LayoutGTCRNMicro rings already have the port's layout.
+
+def _tensor(a: np.ndarray, dev) -> torch.Tensor:
+    """A numpy (or ml_dtypes) array -> a tensor of the same dtype and bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name in _VIEWS:
+        view, dtype = _VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(view).copy()).view(dtype).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def state_from_jax(state_np: dict, dtype=torch.float32, device=None) -> dict:
+    """JAX serving state (numpy arrays) -> the port's state for the same
+    stream history.
+
+    - Layered ``GTCRNMicro`` state (keys are ``/``-joined paths): the same
+      dict, ``(B, L, F, C)`` caches, ``psum_*`` pairs and narrow rings with
+      their dtypes kept (``dtype`` is not used), ``step`` as an integer.
+    - Fused state, ``{name: (L, *frame, B)}`` rings in ``dtype``:
+      FusedGTCRNMicro rings are tile-major ``(L, n_tiles, *frame, tile)``;
+      GridFusedGTCRNMicro rings are ``(L, *frame, B)`` with the frequency
+      axis of the (16, 33) frames padded to 40; LayoutGTCRNMicro rings
+      already have the port's layout.
     """
     dev = resolve_device(device)
+    if any("/" in k for k in state_np):
+        return {k: int(np.asarray(v)) if k == "step" else _tensor(np.asarray(v), dev)
+                for k, v in state_np.items()}
     out = {"step": int(np.asarray(state_np["step"]))}
     for name, L, _d, shape in RING_DEFS:
         v = np.asarray(state_np[name])

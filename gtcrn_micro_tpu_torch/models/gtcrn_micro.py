@@ -10,8 +10,20 @@ transposed convs stored as flipped-kernel plain convs, pointwise weights are
 (``torch.Generator`` is not ``jax.random``); tests hand both packages the
 same numpy params instead.
 
-The layered forward (``nn/core.py``, ``nn/blocks.py``) is not part of this
-package yet; the served path runs the fused forward of ``ops/fused_step.py``.
+:class:`GTCRNMicro` is the layered model (``nn/core.py``, ``nn/blocks.py``):
+the offline forward ``apply``, the streaming ``init_state``/``step`` (ring
+state at chunks of T in {1, 2, 4, 8, 16}, shift state at any T), and a
+:class:`~gtcrn_micro_tpu_torch.serve.CohortServer` backend.  Top-level graph
+(reference gtcrn_micro/models/gtcrn_micro.py:485-532):
+
+    spec (B,F=257,T,2)
+    -> [mag, real, imag] feature stack            (B,T,257,3)
+    -> ERB band merge                             (B,T,129,3)
+    -> SFE-Lite depthwise freq conv               (B,T,129,3)
+    -> Encoder (129->65->33 freq, 5 skips)        (B,T,33,16)
+    -> GTCN x2 (8 dilated TCNs)                   (B,T,33,16)
+    -> Decoder (+skips, 33->65->129)              (B,T,129,2)
+    -> ERB band split, complex ratio mask         (B,F,T,2)
 """
 
 from __future__ import annotations
@@ -19,10 +31,14 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
+import torch.nn as nn
 
 from gtcrn_micro_tpu_torch import resolve_device
 from gtcrn_micro_tpu_torch.dsp.erb import ErbBands
+from gtcrn_micro_tpu_torch.nn.blocks import GTCN, Decoder, Encoder, SFELite
+from gtcrn_micro_tpu_torch.nn.core import Ctx, exact_f32, name_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,3 +150,184 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the layered model
+# ---------------------------------------------------------------------------
+
+
+class _Frozen(nn.Module):
+    """Frozen tensors (the ERB filters), held as buffers."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for k, v in tensors.items():
+            self.register_buffer(k, v)
+
+
+class GTCRNMicro(nn.Module):
+    """The layered GTCRN-Micro model on one device, in one dtype.
+
+    The module tree is named like the JAX param tree and its tensors keep
+    the JAX canonical layouts: trainable leaves are parameters, the ERB
+    filters and the BatchNorm running statistics buffers.
+    :meth:`from_params` loads the nested dict of :func:`init_params` (or a
+    JAX tree as numpy arrays) cast to ``dtype``; :meth:`params` gives it
+    back.
+
+    ``apply`` is the offline forward (it shadows ``nn.Module.apply``);
+    ``init_state``/``step`` stream over ring or shift state with the JAX
+    state keys and shapes, updating the state tensors in place.  ``step``
+    ignores its ``params`` argument, so the model is a
+    :class:`~gtcrn_micro_tpu_torch.serve.CohortServer` backend: its state
+    has the stream batch on axis 0 (``batch_axis``), and its ring steps take
+    the chunk sizes ``chunk_sizes``.  Float32 runs without TF32 whatever
+    the global flags say.
+    """
+
+    batch_axis = 0
+    chunk_sizes = (1, 2, 4, 8, 16)
+
+    def __init__(self, config: GTCRNMicroConfig = GTCRNMicroConfig(),
+                 dtype=torch.float32, device=None):
+        """A model of zero weights (load them with :meth:`load_params`)."""
+        super().__init__()
+        dev = resolve_device(device)
+        c = config
+        self._erb = ErbBands(c.erb_subband_1, c.erb_subband_2, c.n_fft)
+        self.erb = _Frozen(self._erb.init_params("cpu"))
+        self.sfe = SFELite(3)
+        self.encoder = Encoder()
+        self.gtcn1 = GTCN(c.channels)
+        self.gtcn2 = GTCN(c.channels)
+        self.decoder = Decoder()
+        name_paths(self)
+        self.to(dev, dtype)
+        self.config, self.dtype, self.device = c, dtype, dev
+
+    @classmethod
+    def from_params(cls, params: dict, dtype=torch.float32, device=None,
+                    config: GTCRNMicroConfig = GTCRNMicroConfig()) -> GTCRNMicro:
+        model = cls(config, dtype, device)
+        model.load_params(params)
+        return model
+
+    def load_params(self, params: dict) -> None:
+        """Copy a nested param dict (tensors or array-likes) into the
+        model, cast to its dtype; every leaf must be present with its
+        shape, and no other."""
+        flat = {}
+
+        def walk(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}.")
+                else:
+                    flat[prefix + k] = (v if torch.is_tensor(v)
+                                        else torch.from_numpy(np.array(v, np.float32)))
+
+        walk(params, "")
+        self.load_state_dict(flat, strict=True)
+
+    def params(self) -> dict:
+        """The nested param dict, JAX paths and layouts (tensors that share
+        the model's storage)."""
+        tree: dict = {}
+        for key, v in self.state_dict().items():
+            *parents, leaf = key.split(".")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+        return tree
+
+    # -- the shared graph ----------------------------------------------------
+
+    def _forward(self, spec, ctx: Ctx):
+        """spec (B, F, T, 2) -> enhanced spec (B, F, T, 2)."""
+        s = spec.transpose(1, 2)  # (B, T, F, 2)
+        real, imag = s[..., 0], s[..., 1]
+        mag = torch.sqrt(real * real + imag * imag + 1e-12)
+        erb = {"bm_w": self.erb.bm_w, "bs_w": self.erb.bs_w}
+        feat = torch.stack([self._erb.bm(erb, c) for c in (mag, real, imag)], dim=-1)
+        feat = self.sfe(ctx, feat)
+        feat, en_outs = self.encoder(ctx, feat)
+        feat = self.gtcn2(ctx, self.gtcn1(ctx, feat))
+        m = self.decoder(ctx, feat, en_outs)  # (B, T, 129, 2)
+        m_r, m_i = (self._erb.bs(erb, m[..., i]) for i in (0, 1))
+        out = torch.stack([real * m_r - imag * m_i, imag * m_r + real * m_i], dim=-1)
+        return out.transpose(1, 2)
+
+    def apply(self, spec, training: bool = False):
+        """Offline forward of spec (B, 257, T, 2), in the model's dtype on its
+        device.  Returns the enhanced spec; in training mode ``(out, stats)``
+        with the BatchNorm batch statistics by path.  Autograd follows the
+        caller's grad mode."""
+        ctx = Ctx(training=training)
+        with exact_f32():
+            out = self._forward(spec, ctx)
+        return (out, ctx.stats) if training else out
+
+    # -- streaming -----------------------------------------------------------
+
+    def init_state(self, batch: int, dtype=None, ring: bool = True,
+                   l2_psum: bool = False, store_dtype=None) -> dict:
+        """Zeroed streaming state for ``batch`` streams: a flat dict of
+        ``(B, L, F, C)`` caches keyed by the JAX paths, in ``dtype`` (the
+        model's by default).
+
+        ``ring=True``: ring caches plus the integer ``step`` counter (T of
+        every step a power of two <= 16, the same for the state's life).
+        ``ring=False``: shift caches, any chunk size.  ``l2_psum`` (ring
+        only): the 14 L == 2 convs carry their partial-output pairs
+        ``psum_a``/``psum_b``.  ``store_dtype`` (ring only): the rings are
+        stored in it (e.g. ``torch.float8_e4m3fn``) and cast on read."""
+        dtype = dtype or self.dtype
+        ctx = Ctx(initializing=True, ring=ring, l2_psum=ring and l2_psum,
+                  store_dtype=store_dtype if ring else None)
+        frame = torch.zeros((1, self.config.n_freqs, 1, 2), dtype=self.dtype,
+                            device=self.device)
+        with torch.no_grad(), exact_f32():
+            self._forward(frame, ctx)
+        store = ctx.store_dtype or dtype
+        state = {k: torch.zeros((batch,) + shape, device=self.device,
+                                dtype=store if k.endswith("/ring") else dtype)
+                 for k, shape in ctx.new_state.items()}
+        if ring:
+            # every ring length divides 16, so one mod-16 counter indexes all
+            state["step"] = 0
+        return state
+
+    def step(self, params, state: dict, spec):
+        """One streaming step over a chunk: spec (B, 257, T, 2) -> (enhanced
+        spec, the same state dict, updated in place).  ``params`` is
+        ignored.  With ring state T must be a power of two <= 16."""
+        del params
+        ring = "step" in state
+        T = spec.shape[2]
+        if ring and not (1 <= T <= 16 and T & (T - 1) == 0):
+            raise ValueError(f"ring state needs a power-of-two chunk <= 16, got T={T}")
+        # the cache strategy is encoded in the state's own keys
+        l2_psum = ring and any(k.endswith("psum_a") for k in state)
+        ctx = Ctx(state=state, ring=ring, step=state.get("step", 0), l2_psum=l2_psum)
+        with torch.no_grad(), exact_f32():
+            out = self._forward(spec, ctx)
+        if ring:
+            state["step"] = (state["step"] + T) & 15
+        return out, state
+
+    def scan_frames(self, params, state: dict, spec):
+        """Stream a whole utterance one frame at a time: spec (B, F, T, 2)
+        -> (enhanced spec, final state)."""
+        return scan_stepper(self.step, params, state, spec)
+
+
+def scan_stepper(step_fn, params, state: dict, spec):
+    """Frame-by-frame loop of any step-protocol callable (``step(params,
+    state, frame) -> (out, state)``) over spec (B, F, T, 2)."""
+    outs = []
+    for t in range(spec.shape[2]):
+        y, state = step_fn(params, state, spec[:, :, t : t + 1])
+        outs.append(y)
+    return torch.cat(outs, dim=2), state

@@ -1,0 +1,36 @@
+"""Model registry, so configs can name models (the reference splats
+``Model(**config["network_config"])``, train.py:84)."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+_REGISTRY: dict[str, Callable] = {}
+
+
+def register_model(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def get_model(name: str, **kwargs):
+    """The model ``name`` built from ``kwargs`` (its network config, plus
+    ``dtype`` and ``device``), with zero weights: load them with
+    ``load_params``."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**kwargs)
+
+
+@register_model("gtcrn_micro")
+def _gtcrn_micro(n_fft: int = 512, hop_len: int = 256, win_len: int = 512,
+                 dtype=torch.float32, device=None, **kw):
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, GTCRNMicroConfig
+
+    return GTCRNMicro(GTCRNMicroConfig(n_fft=n_fft, hop_len=hop_len, win_len=win_len, **kw),
+                      dtype=dtype, device=device)

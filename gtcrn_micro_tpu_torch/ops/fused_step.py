@@ -406,6 +406,9 @@ class LayoutGTCRNMicro:
     ``LayoutGTCRNMicro`` ((C, F, B), batch innermost); unlike it, this one
     computes in float32 whatever the storage dtype, as the kernels do."""
 
+    batch_axis = -1  # rings are (L, *frame, B)
+    chunk_sizes = (1,)
+
     def __init__(self, params, dtype=torch.float32, device=None):
         self.config = GTCRNMicroConfig()
         self.dtype = dtype

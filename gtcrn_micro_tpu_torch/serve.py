@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``serve.py``.  Streams are admitted into
 slots of K independent *cohorts*; each cohort is stepped once per 16 ms
 frame interval (one 256-sample hop per stream), with the cohorts' phases
 staggered across the interval.  In ``mode="audio"`` a step is audio in ->
-audio out: online STFT, the fused per-frame network, online iSTFT
+audio out: online STFT, the per-frame network, online iSTFT
 (``dsp/stream_dsp.py``); with ``dft="mxu"`` the windowed DFT pair is two
 GEMMs.
 
@@ -12,14 +12,22 @@ GEMMs.
     sid = srv.admit(cohort=srv.next_cohort())
     out = srv.step(cohort_idx, chunk)     # (B, 256) -> (B, 256), one hop behind
 
-The model backends (all with the step protocol ``step(params, state, spec)``
-and ring states ``(L, *frame, B)``, batch innermost):
+The model backends, all with the step protocol ``step(params, state,
+spec)``; each declares the axis of its state that holds the stream batch
+(``batch_axis``):
 
 - ``GridFusedGTCRNMicro`` (the default): one launch of CUDA kernel B2;
-- ``FusedGTCRNMicro``: CUDA kernel B1 plus a gather and scatter;
-- ``LayoutGTCRNMicro``: the plain PyTorch version, on any device.
+- ``FusedGTCRNMicro``: CUDA kernel B1;
+- ``LayoutGTCRNMicro``: the plain PyTorch version of the fused kernels, on
+  any device.  These three keep ring states ``(L, *frame, B)``, batch last,
+  and step one hop at a time;
+- ``models.gtcrn_micro.GTCRNMicro``: the layered model (cuDNN convolutions
+  and cuBLAS products on the GPU), state ``(B, L, F, C)``, batch first.  It
+  also serves throughput mode (``chunk_hops`` T in {2, 4, 8, 16} hops per
+  step) and the state options of its ``init_state`` (``state_opts``:
+  ``l2_psum``, ``store_dtype``).
 
-Ring states and DSP buffers update in place.
+Model states and DSP buffers update in place.
 """
 
 from __future__ import annotations
@@ -99,18 +107,22 @@ class CohortServer:
 
     ``model`` is a backend instance (see the module docstring) or ``None``
     for a ``GridFusedGTCRNMicro`` built from ``params`` in ``dtype`` on
-    ``device``.  ``step(i, chunk)`` advances cohort ``i`` by one hop for all
-    its streams.
+    ``device``.  ``step(i, chunk)`` advances cohort ``i`` by ``chunk_hops``
+    hops for all its streams (throughput mode, see :class:`CohortPlan`; a
+    power of two <= 16 that the backend's ``chunk_sizes`` holds: the fused
+    backends step one hop at a time, as the JAX fused steps do).
+    ``state_opts`` go to the backend's ``init_state`` (the layered model's
+    ``l2_psum`` and ``store_dtype``).
     """
 
     def __init__(self, model, params, batch: int, n_cohorts: int,
                  dtype=torch.bfloat16, mode: str = "spec", dft: str = "mxu",
-                 device=None, chunk_hops: int = 1, mesh=None):
+                 device=None, chunk_hops: int = 1, mesh=None,
+                 state_opts: dict | None = None):
         if mode not in ("spec", "audio"):
             raise ValueError(f"mode must be 'spec' or 'audio', got {mode!r}")
-        if chunk_hops != 1:
-            raise ValueError("the fused backends step one hop at a time "
-                             f"(chunk_hops=1), as the JAX fused steps do; got {chunk_hops}")
+        if chunk_hops not in (1, 2, 4, 8, 16):
+            raise ValueError(f"chunk_hops must be a power of two <= 16, got {chunk_hops}")
         if mesh is not None:
             raise NotImplementedError("data-parallel serving over several "
                                       "GPUs is not ported yet")
@@ -122,6 +134,9 @@ class CohortServer:
         if model.dtype != dtype or model.device != self.device:
             raise ValueError(f"model is {model.dtype} on {model.device}, the "
                              f"server {dtype} on {self.device}")
+        if chunk_hops != 1 and chunk_hops not in model.chunk_sizes:
+            raise ValueError(f"{type(model).__name__} steps chunks of "
+                             f"{model.chunk_sizes} hops, not {chunk_hops}")
         self.model = model
         self.params = params
         self.batch = batch
@@ -142,7 +157,8 @@ class CohortServer:
                          for _ in range(n_cohorts)]
         else:
             self._step = model.step
-        self._states = [model.init_state(batch, dtype=dtype) for _ in range(n_cohorts)]
+        self._states = [model.init_state(batch, dtype=dtype, **(state_opts or {}))
+                        for _ in range(n_cohorts)]
         self._frames = [0] * n_cohorts
         # clean free slots (rings are zeros) and recycled free slots (rings
         # still carry a previous stream's history); admit() prefers clean
@@ -175,16 +191,17 @@ class CohortServer:
         self._recycled[cohort].append(slot)
 
     def reset_slot(self, cohort: int, slot: int) -> None:
-        """Zero one stream's state (idempotent): its column of every ring
-        (the batch is the LAST axis of the fused ring layout) and its row of
-        the DSP buffers.  A slot waiting in the recycled pool moves back to
-        the clean pool."""
+        """Zero one stream's state (idempotent): its slice of every state
+        tensor along the backend's ``batch_axis`` (last for the fused rings,
+        first for the layered state) and its row of the DSP buffers.  A slot
+        waiting in the recycled pool moves back to the clean pool."""
         if slot in self._recycled[cohort]:
             self._recycled[cohort].remove(slot)
             self._free[cohort].append(slot)
+        axis = self.model.batch_axis
         for k, v in self._states[cohort].items():
             if k != "step":
-                v[..., slot] = 0
+                v.select(axis, slot).zero_()
         if self.mode == "audio":
             d = self._dsp[cohort]
             d.in_buf[slot] = 0
@@ -193,10 +210,10 @@ class CohortServer:
     # -- serving -----------------------------------------------------------
 
     def step(self, cohort: int, frame: torch.Tensor) -> torch.Tensor:
-        """Advance ``cohort`` by one hop.
+        """Advance ``cohort`` by ``chunk_hops`` (T) hops.
 
-        mode "spec":  frame is (batch, 257, 1, 2) spectra -> enhanced spectra.
-        mode "audio": frame is (batch, 256) samples -> enhanced samples one
+        mode "spec":  frame is (batch, 257, T, 2) spectra -> enhanced spectra.
+        mode "audio": frame is (batch, 256 T) samples -> enhanced samples one
         hop behind (the first emitted hop per stream is the center trim).
         """
         frame = frame.to(self.device, self.dtype)
@@ -230,11 +247,11 @@ def _snr_db(ref, x) -> float:
 def main(args=None) -> None:
     """Demo CLI: enhance audio through the audio-mode cohort server.
 
-    Admits one stream into a cohort, feeds one hop per (virtual) frame
-    interval, and reports the kernel backend's SNR against the plain
-    PyTorch version fed the same audio.  Without ``--wav`` the input is a
-    seeded synthetic signal; without ``--params`` the weights are a seeded
-    random init.
+    Admits one stream into a cohort, feeds ``--chunk-hops`` hops per
+    (virtual) interval, and reports the backend's SNR against the plain
+    PyTorch version of the fused kernels fed the same audio one hop at a
+    time.  Without ``--wav`` the input is a seeded synthetic signal; without
+    ``--params`` the weights are a seeded random init.
     """
     import argparse
 
@@ -242,9 +259,9 @@ def main(args=None) -> None:
 
     from gtcrn_micro_tpu_torch.io.params import load_params_npz
     from gtcrn_micro_tpu_torch.io.wav import read_wav, write_wav
-    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
-    from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro, LayoutGTCRNMicro
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
     from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro, LayoutGTCRNMicro
 
     parser = argparse.ArgumentParser(description="cohort serving demo")
     parser.add_argument("--wav", default="", help="input wav (16 kHz mono)")
@@ -256,7 +273,10 @@ def main(args=None) -> None:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--cohorts", type=int, default=2)
     parser.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
-    parser.add_argument("--backend", choices=["grid", "step"], default="grid")
+    parser.add_argument("--backend", choices=["grid", "step", "layered"], default="grid",
+                        help="kernel B2, kernel B1, or the layered model")
+    parser.add_argument("--chunk-hops", type=int, default=1,
+                        help="hops per step (throughput mode; layered backend only)")
     parser.add_argument("--device", default=None)
     ns = parser.parse_args(args)
 
@@ -277,34 +297,39 @@ def main(args=None) -> None:
         wav = (0.3 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 3 * tt))
                + 0.05 * rng.standard_normal(n)).astype(np.float32)
     dtype = torch.bfloat16 if ns.dtype == "bf16" else torch.float32
-    hop = 256
-    hops = len(wav) // hop
+    hop, T = 256, ns.chunk_hops
+    hops = len(wav) // (hop * T) * T
     wav = torch.from_numpy(np.ascontiguousarray(wav[: hops * hop], np.float32))
 
-    cls = GridFusedGTCRNMicro if ns.backend == "grid" else FusedGTCRNMicro
+    if ns.backend == "layered":
+        model = GTCRNMicro.from_params(params, dtype=dtype, device=device)
+    else:
+        cls = GridFusedGTCRNMicro if ns.backend == "grid" else FusedGTCRNMicro
+        model = cls(params, dtype=dtype, device=device)
     runs = {}
-    for label, model in (("kernel", cls(params, dtype=dtype, device=device)),
-                         ("plain", LayoutGTCRNMicro(params, dtype=dtype, device=device))):
-        srv = CohortServer(model, params, batch=ns.batch, n_cohorts=ns.cohorts,
-                           dtype=dtype, mode="audio", device=device)
+    for label, m, t_hops in ((ns.backend, model, T),
+                             ("plain", LayoutGTCRNMicro(params, dtype=dtype, device=device), 1)):
+        srv = CohortServer(m, params, batch=ns.batch, n_cohorts=ns.cohorts, dtype=dtype,
+                           mode="audio", device=device, chunk_hops=t_hops)
         cohort = srv.next_cohort()
         slot = srv.admit(cohort)
-        feed = torch.zeros((ns.batch, hop), dtype=dtype, device=device)
+        feed = torch.zeros((ns.batch, hop * t_hops), dtype=dtype, device=device)
         zeros = torch.zeros_like(feed)
         outs = []
-        for t in range(hops + 1):  # +1 step flushes the one-hop OLA tail
-            feed[slot] = wav[hop * t : hop * (t + 1)] if t < hops else 0.0
+        for t in range(0, hops + t_hops, t_hops):  # the last step flushes the OLA tail
+            feed[slot] = wav[hop * t : hop * (t + t_hops)] if t < hops else 0.0
             for c in range(srv.n_cohorts):  # phase-ordered interval
                 got = srv.step(c, feed if c == cohort else zeros)
                 if c == cohort:
                     outs.append(got[slot].float().cpu())
-        runs[label] = torch.cat(outs)[hop:]  # drop the center-trim chunk
-        print(f"{label}: served {hops} hops through cohort {cohort} slot {slot} "
-              f"({srv.n_cohorts} cohorts x {srv.batch} slots, {ns.dtype}, {device})")
-    note = " (on the CPU both run the plain version)" if device.type == "cpu" else ""
-    print(f"kernel vs plain SNR: {_snr_db(runs['plain'], runs['kernel']):.1f} dB{note}")
+        runs[label] = torch.cat(outs)[hop : hop * (hops + 1)]  # drop the center-trim hop
+        print(f"{label}: served {hops} hops, {t_hops} per step, through cohort {cohort} "
+              f"slot {slot} ({srv.n_cohorts} cohorts x {srv.batch} slots, {ns.dtype}, {device})")
+    note = (" (on the CPU the kernel backends run the plain version)"
+            if device.type == "cpu" and ns.backend != "layered" else "")
+    print(f"{ns.backend} vs plain SNR: {_snr_db(runs['plain'], runs[ns.backend]):.1f} dB{note}")
     if ns.out:
-        write_wav(ns.out, runs["kernel"].numpy(), fs)
+        write_wav(ns.out, runs[ns.backend].numpy(), fs)
         print(f"wrote {ns.out}")
 
 

@@ -185,6 +185,32 @@ def test_audio_step_and_scan_match(windows, dft):
     np.testing.assert_array_equal(so.numpy(), to)
 
 
+@pytest.mark.parametrize("dft", ["fft", "mxu"])
+def test_audio_step_and_scan_carry_t_hop_chunks(windows, dft):
+    """Chunks of T = 4 hops, (B, 1024) samples, through the audio step (as
+    the JAX step takes them), and the same audio one hop at a time through
+    the scan."""
+    jw, tw = windows
+    T, hops = 4, 12
+    x = _signal(batch=3, hops=hops, seed=7)
+    jstep = jsd.make_audio_step(_Gain(), jw, dft=dft)
+    tstep = tsd.make_audio_step(_Gain(), tw, dft=dft)
+    jd, td = jsd.init_dsp_state(3), tsd.init_dsp_state(3, device="cpu")
+    jo, to = [], []
+    for t in range(0, hops, T):
+        c = x[:, HOP * t : HOP * (t + T)]
+        o, jd, _ = jstep(None, jd, None, jnp.asarray(c))
+        jo.append(np.asarray(o))
+        o, td, _ = tstep(None, td, None, torch.from_numpy(c))
+        assert o.shape == (3, HOP * T)
+        to.append(o.numpy())
+    to = np.concatenate(to, -1)
+    np.testing.assert_allclose(to, np.concatenate(jo, -1), atol=AUDIO_TOL)
+    scan = tsd.make_audio_scan(_Gain(), tw, dft=dft)
+    so, _, _ = scan(None, tsd.init_dsp_state(3, device="cpu"), None, torch.from_numpy(x))
+    np.testing.assert_allclose(so.numpy(), to, atol=AUDIO_TOL)
+
+
 def test_make_audio_step_rejects_unknown_dft(windows):
     with pytest.raises(ValueError):
         tsd.make_audio_step(_Gain(), windows[1], dft="fht")

@@ -42,11 +42,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
     from gtcrn_micro_tpu_torch import resolve_device
-    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
+    from gtcrn_micro_tpu_torch.eval.infer import enhance_wavs
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
     from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro
     from gtcrn_micro_tpu_torch.serve import CohortServer
 
     params = init_params(device="cpu")
+    layered = GTCRNMicro.from_params(params, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FusedGTCRNMicro(params)
@@ -54,6 +56,12 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
         CohortServer(None, params, batch=8, n_cohorts=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GTCRNMicro.from_params(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CohortServer(layered, None, batch=8, n_cohorts=1, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        enhance_wavs(layered, [])
     assert resolve_device("cpu").type == "cpu"
 
 
