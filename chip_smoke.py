@@ -49,6 +49,22 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               wavs of 3-10 s (wall time, real-time factor, silence exactly
               0, one wav >= 60 dB against the f32 layered server outside
               its first 96 and last 2 hops).
+7. train   -- the training path (``train.trainer``, ``train.train``; no
+              kernel of this repo): one f32 step at B=4 x 1 s of white noise
+              (the JAX trainer tests' batch) on the card and on the CPU port
+              from the same params (loss rel <= 1e-5; every gradient within
+              1e-4 of the largest gradient of the CPU float64 step, float32
+              itself being good to ~1e-5 of it; BatchNorm running statistics
+              <= 1e-5; the ERB filters and, under the lr-0 first update,
+              every other leaf bit-identical; the loss gap on tone-only
+              targets reported), the same step bit-identical with the
+              global TF32 flags on; f32 and bf16 steps at the training shape 8 x
+              10 s (configs/cfg_train_dns3.yaml): ms per step, audio seconds
+              per second, peak memory, host syncs, idle share and top device
+              operations, the loss falling over 30 steps, bf16 step 1 within
+              5 % of f32; ``train.run`` for 2 epochs and resumed to 3 on
+              smoke data, then ``eval.infer`` on its checkpoint and
+              ``eval.intrusive`` (finite SDR, SI-SNR, STOI).
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -361,6 +377,210 @@ def layered_phase(torch, dev, params, spec, card) -> dict:
     return res
 
 
+def train_phase(torch, dev, params, card) -> None:
+    """Phase 7: the training step on the card against the CPU port and
+    against itself with the TF32 flags on, its time, memory and idle share
+    at the full training shape in f32 and bf16, and train -> resume ->
+    enhance -> score end to end."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from gtcrn_micro_tpu_torch.dsp.stft import hann_window, stft
+    from gtcrn_micro_tpu_torch.eval import infer, intrusive
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro
+    from gtcrn_micro_tpu_torch.nn.core import Ctx
+    from gtcrn_micro_tpu_torch.train import train as train_mod
+    from gtcrn_micro_tpu_torch.train.loss import hybrid_loss
+    from gtcrn_micro_tpu_torch.train.scheduler import WarmupCosineConfig
+    from gtcrn_micro_tpu_torch.train.trainer import make_optimizer, make_train_step
+    from gtcrn_micro_tpu_torch.utils.checkpoint import CheckpointManager
+    from gtcrn_micro_tpu_torch.utils.make_smoke_data import make_smoke_data, smoke_pair
+
+    t_phase = time.perf_counter()
+    sched = WarmupCosineConfig(warmup_steps=5, decay_until_step=100, max_lr=1e-3)
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+
+    def batch(n, seconds, seed):
+        rng = np.random.default_rng(seed)
+        pairs = [smoke_pair(rng, int(seconds * 16000)) for _ in range(n)]
+        return np.stack([p[1] for p in pairs]), np.stack([p[0] for p in pairs])
+
+    def trainer(device, dtype=None):
+        model = GTCRNMicro.from_params(params, device=device)
+        opt = make_optimizer(model, sched, device=device)
+        return model, make_train_step(model, opt, compute_dtype=dtype, device=device)
+
+    # -- parity: one f32 step at 4 x 1 s on the card, on the CPU port, and on
+    # the card with the global TF32 flags on (cuDNN deterministic for both
+    # card runs, so that only the flags differ).  The batch is the JAX
+    # trainer tests' white noise (tests/train/test_trainer.py): on targets
+    # with near-zero bins, such as make_smoke_data's pure tones, the loss's
+    # |X|^0.3 compression magnifies the FFTs' float32 rounding there, so that
+    # comparison is reported, not bounded
+    rng = np.random.default_rng(7)
+    clean = (rng.standard_normal((4, 16000)) * 0.05).astype(np.float32)
+    noisy = clean + (rng.standard_normal((4, 16000)) * 0.02).astype(np.float32)
+
+    def one_step(device, tf32=False, data=(noisy, clean)):
+        model, step = trainer(device)
+        saved = mm.allow_tf32, cudnn.allow_tf32, cudnn.deterministic
+        mm.allow_tf32 = cudnn.allow_tf32 = tf32
+        cudnn.deterministic = True
+        try:
+            loss = float(step(*data))
+            kept = mm.allow_tf32 == cudnn.allow_tf32 == tf32
+        finally:
+            mm.allow_tf32, cudnn.allow_tf32, cudnn.deterministic = saved
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return loss, grads, {k: v.cpu() for k, v in model.state_dict().items()}, kept
+
+    card_loss, card_g, card_st, _ = one_step(dev)
+    cpu_loss, cpu_g, cpu_st, _ = one_step("cpu")
+    tf_loss, tf_g, tf_st, tf_kept = one_step(dev, tf32=True)
+    tones = batch(4, 1.0, 7)
+    tones_rel = abs(one_step(dev, data=tones)[0] / one_step("cpu", data=tones)[0] - 1)
+
+    # the float64 gradient of the same loss on the CPU: a float32 gradient
+    # is good to ~1e-5 of the largest gradient here, but leaves with small
+    # gradients (gammas, PReLU slopes; the conv biases ahead of a BatchNorm,
+    # whose true gradient is 0) carry errors of 1e-2 to 1 of their own size
+    # even between two CPU thread counts, so each float32 gradient is held
+    # against the float64 one at the scale of the largest gradient
+    m64 = GTCRNMicro.from_params(params, dtype=torch.float64, device="cpu")
+    w64 = hann_window(512, dtype=torch.float64, device="cpu")
+    spec64 = [stft(torch.from_numpy(x).double(), w64) for x in (noisy, clean)]
+    hybrid_loss(m64(spec64[0], Ctx(training=True)), spec64[1]).backward()
+    ref_g = {n: p.grad for n, p in m64.named_parameters()}
+    g_max = max(float(g.abs().max()) for g in ref_g.values())
+
+    def grad_err(gs):  # worst leaf error over the largest float64 gradient
+        return max(float((gs[n].double() - ref_g[n]).abs().max()) for n in ref_g) / g_max
+
+    leaf_rel = max((float((card_g[n] - cpu_g[n]).abs().max() / cpu_g[n].abs().max()), n)
+                   for n in cpu_g)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    bn_err = max(float((card_st[k] - cpu_st[k]).abs().max()) for k in cpu_st if "running" in k)
+    start = GTCRNMicro.from_params(params, device="cpu").state_dict()
+    unmoved = all(torch.equal(card_st[k], start[k]) for k in start if "running" not in k)
+    card_err, cpu_err = grad_err(card_g), grad_err(cpu_g)
+    ok = loss_rel <= 1e-5 and card_err <= 1e-4 and bn_err <= 1e-5 and unmoved
+    say("train", f"f32 step B=4 x 1 s of white noise, card vs CPU port: loss {card_loss:.6f} vs {cpu_loss:.6f} "
+                 f"(rel {loss_rel:.2g}, bound 1e-5); gradients against the CPU float64 "
+                 f"gradient, worst leaf error over the largest gradient: card {card_err:.2g}, "
+                 f"CPU float32 {cpu_err:.2g} (bound 1e-4); card vs CPU relative to each "
+                 f"leaf's own largest magnitude: {leaf_rel[0]:.2g} ({leaf_rel[1]}; reported); "
+                 f"BN running statistics max-abs {bn_err:.2g} (bound 1e-5); ERB filters and "
+                 f"the lr-0 update leave every other leaf bit-identical {unmoved} "
+                 f"{'ok' if ok else 'FAILED'}; on make_smoke_data's tones the losses differ "
+                 f"by {tones_rel:.2g} (reported)")
+    if not ok:
+        fail("train: the card's step disagrees with the CPU port")
+    same = (tf_loss == card_loss and all(torch.equal(tf_g[n], card_g[n]) for n in card_g)
+            and all(torch.equal(tf_st[k], card_st[k]) for k in card_st))
+    say("train", f"f32 step with the global TF32 flags on: loss, gradients and state "
+                 f"bit-identical {same}, the caller's flags kept {tf_kept} "
+                 f"{'ok' if same and tf_kept else 'FAILED'}")
+    if not (same and tf_kept):
+        fail("train: the f32 step depends on the global TF32 flags")
+    del m64, ref_g
+
+    # -- the full training shape: 8 x 10 s (configs/cfg_train_dns3.yaml)
+    B, secs = 8, 10.0
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in batch(B, secs, 8))
+    first = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # the batch and what earlier phases hold
+        torch.cuda.reset_peak_memory_stats()
+        model, step = trainer(dev, dtype)
+        losses = []
+
+        def run_step():
+            losses.append(step(noisy, clean))
+
+        run_step()  # the first step also makes the loss's window on the card
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        ms = cuda_ms(torch, run_step, n=20, warm=1)
+        prof = idle_share(torch, lambda i: run_step(), n=5)
+        while len(losses) < 30:
+            run_step()
+        peak = torch.cuda.max_memory_allocated() - base
+        ls = [float(x) for x in losses]
+        masters = all(t.dtype == torch.float32 for t in model.state_dict().values())
+        first[name] = ls[0]
+        ok = all(map(math.isfinite, ls)) and ls[-1] < ls[0] and masters
+        say("train", f"{name} step B={B} x {secs:.0f} s ({B * int(secs * 16000)} samples): "
+                     f"{ms:.2f} ms per step (CUDA events, median of 20), "
+                     f"{B * secs / (ms / 1e3):.0f} s of audio per s, peak memory "
+                     f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before "
+                     f"(model, optimizer, step), {syncs} host syncs per step; loss over 30 steps "
+                     f"{ls[0]:.3f} -> {ls[-1]:.3f}, masters float32 {masters} "
+                     f"{'ok' if ok else 'FAILED'}; card {card}")
+        say("train", f"{name}: " + prof)
+        if not ok:
+            fail(f"train: the {name} steps did not train")
+        del model, step, losses
+    rel = abs(first["bf16"] - first["f32"]) / first["f32"]
+    say("train", f"bf16 step-1 loss {first['bf16']:.4f} vs f32 {first['f32']:.4f}: rel {rel:.2g} "
+                 f"(bound 0.05) {'ok' if rel <= 0.05 else 'FAILED'}")
+    if rel > 0.05:
+        fail("train: the bf16 loss is not the f32 loss")
+    del noisy, clean
+
+    # -- end to end: train, resume, enhance, score
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        make_smoke_data(f"{d}/data", n_train=8, n_val=2, seconds=1.0)
+        cfg = {"network": "gtcrn_micro", "seed": 43,
+               "scheduler": {"kwargs": {"warmup_steps": 4, "decay_until_step": 40}},
+               "train_dataset": {"noisy_root": f"{d}/data/train/noisy", "length_seconds": 1.0,
+                                 "num_data_per_epoch": 8},
+               "train_dataloader": {"batch_size": 8, "num_workers": 2},
+               "valid_dataset": {"noisy_root": f"{d}/data/val/noisy", "length_seconds": 1.0,
+                                 "train": False},
+               "valid_dataloader": {"batch_size": 2, "num_workers": 2},
+               "trainer": {"epochs": 2, "exp_path": f"{d}/exp", "log_every": 1}}
+        t0 = time.perf_counter()
+        exp = train_mod.run(cfg, device=dev)
+        cfg["trainer"].update(epochs=3, resume=True, exp_path=exp)
+        resumed = train_mod.run(cfg, device=dev)
+        with open(f"{exp}/logs/metrics.jsonl") as f:
+            val = [m for m in map(json.loads, f) if "val_loss" in m]
+        steps = CheckpointManager(f"{exp}/checkpoints").steps()
+        model = GTCRNMicro.from_params(infer.load_params(f"{exp}/checkpoints", device=dev),
+                                       device=dev)
+        infer.write_enhanced(model, f"{d}/data/val/noisy", f"{d}/data/val/clean", f"{d}/enh",
+                             device=dev)
+        intrusive.main(["--ref_scp", f"{d}/enh/ref.scp", "--inf_scp", f"{d}/enh/inf.scp",
+                        "--output_dir", f"{d}/res", "--nj", "2"])
+        with open(f"{d}/res/RESULTS.txt") as f:
+            scores = dict(ln.split(": ") for ln in f if not ln.startswith("#"))
+        scores = {k: float(v) for k, v in scores.items()}
+        best = Path(f"{exp}/checkpoints/best_score.json").exists()
+        wall = time.perf_counter() - t0
+    ok = (resumed == exp and [(m["epoch"], m["step"]) for m in val] == [(1, 1), (2, 2), (3, 3)]
+          and all(math.isfinite(m["val_loss"]) for m in val) and steps == [1, 2, 3] and best
+          and all(math.isfinite(scores[k]) for k in ("SDR", "SISNR", "STOI")))
+    say("train", f"train.run 2 epochs, resume to 3 (epoch, step) {[(m['epoch'], m['step']) for m in val]}, "
+                 f"val_loss {[round(m['val_loss'], 3) for m in val]}, checkpoints {steps}, "
+                 f"best_score.json {best}; enhance_wavs + eval.intrusive on the val wavs: "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in scores.items())
+                 + f" ({wall:.1f} s) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train: train -> resume -> enhance -> score")
+    say("train", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
@@ -629,6 +849,9 @@ def main() -> None:
 
     # -- 6. layered -------------------------------------------------------
     layered_phase(torch, dev, params, spec, card)
+
+    # -- 7. train ---------------------------------------------------------
+    train_phase(torch, dev, params, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -91,37 +91,32 @@ def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
     return out
 
 
-def main(args=None) -> None:
-    """Enhance every wav of the config's ``test_dataset.noisy_dir`` into
-    ``network.enh_folder`` with the params of ``network.checkpoint`` (a flat
-    ``.npz`` of ``/``-joined param paths, ``io/params.load_params_npz``)."""
-    from gtcrn_micro_tpu_torch.io.params import load_params_npz
-    from gtcrn_micro_tpu_torch.models.registry import get_model
-    from gtcrn_micro_tpu_torch.utils.config import load_config
+def load_params(checkpoint: str, device=None) -> dict:
+    """Params from ``checkpoint``: a flat ``.npz`` of ``/``-joined param
+    paths (``io/params.load_params_npz``), or a directory of the trainer's
+    ``utils/checkpoint.CheckpointManager``, whose latest step is read (as the
+    JAX package reads an orbax directory).  The reference ``.tar`` waits for
+    its importer (ROADMAP queue A, item 9)."""
+    from gtcrn_micro_tpu_torch.io.params import load_params_npz, params_from_numpy
+    from gtcrn_micro_tpu_torch.utils.checkpoint import CheckpointManager
 
-    parser = argparse.ArgumentParser()
-    parser.add_argument("-C", "--config", default="configs/cfg_infer.yaml")
-    parser.add_argument("--batch-size", type=int, default=8)
-    parser.add_argument("--device", default=None)
-    ns = parser.parse_args(args)
-    cfg = load_config(ns.config)
-    dev = resolve_device(ns.device)
+    if os.path.isdir(checkpoint):
+        return params_from_numpy(CheckpointManager(checkpoint).restore()["params"], device)
+    if not checkpoint.endswith(".npz"):
+        raise ValueError(f"checkpoint {checkpoint!r}: expected a .npz of params or a "
+                         f"checkpoint directory")
+    return load_params_npz(checkpoint, device=device)
 
-    noisy_dir = cfg["test_dataset"]["noisy_dir"]
-    clean_dir = cfg["test_dataset"].get("clean_dir")
-    enh_dir = cfg["network"]["enh_folder"]
+
+def write_enhanced(model, noisy_dir: str, clean_dir: str | None, enh_dir: str,
+                   batch_size: int = 8, device=None) -> None:
+    """Enhance every wav of ``noisy_dir`` into ``enh_dir/<uid>_enh.wav``,
+    length-matched to its clean wav in ``clean_dir`` when one is given, and
+    write the ``inf.scp`` (and ``ref.scp``) manifests."""
     os.makedirs(enh_dir, exist_ok=True)
-
-    ckpt = cfg["network"]["checkpoint"]
-    if not ckpt.endswith(".npz"):
-        raise ValueError(f"checkpoint {ckpt!r}: expected a .npz of params")
-    model = get_model(cfg.get("network_name", "gtcrn_micro"), device=dev,
-                      **cfg.get("network_config", {}))
-    model.load_params(load_params_npz(ckpt, device=dev))
-
     wavs = sorted(os.path.join(noisy_dir, f) for f in os.listdir(noisy_dir)
                   if f.endswith(".wav"))
-    enhanced = enhance_wavs(model, wavs, batch_size=ns.batch_size, device=dev)
+    enhanced = enhance_wavs(model, wavs, batch_size=batch_size, device=device)
 
     inf_scp, ref_scp = [], []
     for noisy_path in wavs:
@@ -155,6 +150,28 @@ def main(args=None) -> None:
         with open(os.path.join(enh_dir, "ref.scp"), "w") as f:
             f.writelines(f"{uid} {p}\n" for uid, p in ref_scp)
     print(f"wrote {len(inf_scp)} enhanced wavs + scp manifests to {enh_dir}")
+
+
+def main(args=None) -> None:
+    """Enhance every wav of the config's ``test_dataset.noisy_dir`` into
+    ``network.enh_folder`` with the params of ``network.checkpoint``
+    (:func:`load_params`)."""
+    from gtcrn_micro_tpu_torch.models.registry import get_model
+    from gtcrn_micro_tpu_torch.utils.config import load_config
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-C", "--config", default="configs/cfg_infer.yaml")
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--device", default=None)
+    ns = parser.parse_args(args)
+    dev = resolve_device(ns.device)
+    cfg = load_config(ns.config)
+
+    model = get_model(cfg.get("network_name", "gtcrn_micro"), device=dev,
+                      **cfg.get("network_config", {}))
+    model.load_params(load_params(cfg["network"]["checkpoint"], device=dev))
+    write_enhanced(model, cfg["test_dataset"]["noisy_dir"], cfg["test_dataset"].get("clean_dir"),
+                   cfg["network"]["enh_folder"], batch_size=ns.batch_size, device=dev)
 
 
 if __name__ == "__main__":

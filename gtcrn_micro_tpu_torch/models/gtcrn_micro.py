@@ -152,6 +152,29 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def nest(flat: dict) -> dict:
+    """``{"encoder.en0.conv.w": v}`` -> ``{"encoder": {"en0": {"conv": {"w": v}}}}``."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """The inverse of :func:`nest`: nested dict -> dotted keys."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(flatten(v, f"{prefix}{k}."))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
 # ---------------------------------------------------------------------------
 # the layered model
 # ---------------------------------------------------------------------------
@@ -217,35 +240,20 @@ class GTCRNMicro(nn.Module):
         """Copy a nested param dict (tensors or array-likes) into the
         model, cast to its dtype; every leaf must be present with its
         shape, and no other."""
-        flat = {}
-
-        def walk(node, prefix):
-            for k, v in node.items():
-                if isinstance(v, dict):
-                    walk(v, f"{prefix}{k}.")
-                else:
-                    flat[prefix + k] = (v if torch.is_tensor(v)
-                                        else torch.from_numpy(np.array(v, np.float32)))
-
-        walk(params, "")
+        flat = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.float32))
+                for k, v in flatten(params).items()}
         self.load_state_dict(flat, strict=True)
 
     def params(self) -> dict:
         """The nested param dict, JAX paths and layouts (tensors that share
         the model's storage)."""
-        tree: dict = {}
-        for key, v in self.state_dict().items():
-            *parents, leaf = key.split(".")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = v
-        return tree
+        return nest(self.state_dict())
 
     # -- the shared graph ----------------------------------------------------
 
-    def _forward(self, spec, ctx: Ctx):
-        """spec (B, F, T, 2) -> enhanced spec (B, F, T, 2)."""
+    def forward(self, spec, ctx: Ctx):
+        """spec (B, F, T, 2) -> enhanced spec (B, F, T, 2), in the mode ``ctx``
+        gives (the trainer calls it through ``torch.func.functional_call``)."""
         s = spec.transpose(1, 2)  # (B, T, F, 2)
         real, imag = s[..., 0], s[..., 1]
         mag = torch.sqrt(real * real + imag * imag + 1e-12)
@@ -266,7 +274,7 @@ class GTCRNMicro(nn.Module):
         caller's grad mode."""
         ctx = Ctx(training=training)
         with exact_f32():
-            out = self._forward(spec, ctx)
+            out = self(spec, ctx)
         return (out, ctx.stats) if training else out
 
     # -- streaming -----------------------------------------------------------
@@ -289,7 +297,7 @@ class GTCRNMicro(nn.Module):
         frame = torch.zeros((1, self.config.n_freqs, 1, 2), dtype=self.dtype,
                             device=self.device)
         with torch.no_grad(), exact_f32():
-            self._forward(frame, ctx)
+            self(frame, ctx)
         store = ctx.store_dtype or dtype
         state = {k: torch.zeros((batch,) + shape, device=self.device,
                                 dtype=store if k.endswith("/ring") else dtype)
@@ -312,7 +320,7 @@ class GTCRNMicro(nn.Module):
         l2_psum = ring and any(k.endswith("psum_a") for k in state)
         ctx = Ctx(state=state, ring=ring, step=state.get("step", 0), l2_psum=l2_psum)
         with torch.no_grad(), exact_f32():
-            out = self._forward(spec, ctx)
+            out = self(spec, ctx)
         if ring:
             state["step"] = (state["step"] + T) & 15
         return out, state

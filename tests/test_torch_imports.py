@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "gtcrn_micro_tpu")
+FORBIDDEN = ("jax", "jaxlib", "gtcrn_micro_tpu", "optax", "orbax")
 
 
 def _sources():
@@ -43,9 +43,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
     from gtcrn_micro_tpu_torch import resolve_device
     from gtcrn_micro_tpu_torch.eval.infer import enhance_wavs
+    from gtcrn_micro_tpu_torch.eval.infer import main as infer_main
     from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
     from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro
     from gtcrn_micro_tpu_torch.serve import CohortServer
+    from gtcrn_micro_tpu_torch.train.train import run as train_run
+    from gtcrn_micro_tpu_torch.train.trainer import make_eval_step, make_optimizer, make_train_step
 
     params = init_params(device="cpu")
     layered = GTCRNMicro.from_params(params, device="cpu")
@@ -62,6 +65,12 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
         CohortServer(layered, None, batch=8, n_cohorts=1, dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         enhance_wavs(layered, [])
+    opt = make_optimizer(layered, device="cpu")
+    for call in (lambda: make_optimizer(layered), lambda: make_train_step(layered, opt),
+                 lambda: make_eval_step(layered), lambda: train_run({}),
+                 lambda: infer_main(["-C", "cfg.yaml"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu").type == "cpu"
 
 
