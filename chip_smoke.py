@@ -65,6 +65,22 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               5 % of f32; ``train.run`` for 2 epochs and resumed to 3 on
               smoke data, then ``eval.infer`` on its checkpoint and
               ``eval.intrusive`` (finite SDR, SI-SNR, STOI).
+8. quant   -- quantization (``quant/``, ``ops/int8_step.py``; no kernel of
+              this repo, the int8 products are ``torch._int_mm``):
+              ``observe_ranges`` on 16 seeded specs of 973 frames (59
+              paths), the card's ranges against the CPU port's on 2 x 64
+              frames (1e-5 of each path's bound); the int8 fake-quant
+              ``apply`` on the card against the CPU and its T=1 ring step
+              against ``apply``, and ``Int8Serving`` against the card's
+              fake-quant step over 20 frames at B=256, each at the JAX int8
+              test's bounds (median frame < 1e-6, worst < 5e-3 max|y|, SNR
+              > 50 dB: a value on a rounding tie may flip by one quantum);
+              en1's ``_int_mm`` accumulators against the CPU int32 product
+              bit for bit, and ``_int_mm``'s layout rules; the int8 step at
+              8,192 and 32,768 streams (CUDA events, device operations,
+              idle share, top operations, state bytes) and en1's ``_int_mm``
+              time against its bound; 20 QAT steps at 8 x 4 s (the loss
+              falls, the running statistics stay).
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -83,6 +99,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_F32_FLOPS = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, H100 SXM data sheet
 
 
 def fail(msg: str) -> None:
@@ -581,6 +598,194 @@ def train_phase(torch, dev, params, card) -> None:
     say("train", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def tie_bounds(ref, got) -> tuple[bool, str]:
+    """The bounds of the JAX package's int8 step test for two quantized
+    paths, where a value on a rounding tie may flip by one quantum: median
+    of the per-frame max-abs errors < 1e-6, worst < 5e-3 max|y|, every
+    frame's SNR > 50 dB.  ``ref``, ``got``: (B, F, T, 2), frames on axis 2."""
+    errs = [float((got[:, :, t] - ref[:, :, t]).abs().max()) for t in range(ref.shape[2])]
+    snrs = [snr_db(ref[:, :, t], got[:, :, t]) for t in range(ref.shape[2])]
+    mag = float(ref.abs().max())
+    ok = (statistics.median(errs) < 1e-6 and max(errs) < 5e-3 * max(mag, 1.0)
+          and min(snrs) > 50)
+    return ok, (f"median frame max-abs {statistics.median(errs):.3g}, worst {max(errs):.3g} "
+                f"(max|y| {mag:.3g}), min frame SNR {min(snrs):.1f} dB")
+
+
+def quant_phase(torch, dev, params, card) -> dict:
+    """Phase 8: PTQ calibration, the int8 fake-quant model, the full-integer
+    int8 serving step and QAT on the card (``quant/``, ``ops/int8_step.py``;
+    no kernel of this repo: the int8 products are ``torch._int_mm``)."""
+    import numpy as np
+
+    from gtcrn_micro_tpu_torch.dsp.stft import sqrt_hann_window, stft
+    from gtcrn_micro_tpu_torch.models.folding import fold_bn_params
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, scan_stepper
+    from gtcrn_micro_tpu_torch.ops.int8_step import Int8Serving
+    from gtcrn_micro_tpu_torch.quant import qat
+    from gtcrn_micro_tpu_torch.quant.ptq import QuantizedModel, observe_ranges, qparams_from_ranges
+    from gtcrn_micro_tpu_torch.utils.make_smoke_data import smoke_pair
+
+    t_phase = time.perf_counter()
+    res = {}
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    cpu = to_cpu(params)
+    folded = fold_bn_params(cpu)  # the int8 step's numbers: BatchNorm folded on the host
+    fmodel = GTCRNMicro.from_params(folded, device=dev)
+    fmodel_cpu = GTCRNMicro.from_params(folded, device="cpu")
+
+    # -- calibration: 16 seeded noisy wavs of 973 frames (15.6 s) each
+    rng = np.random.default_rng(9)
+    audio = np.stack([smoke_pair(rng, 972 * 256)[1] for _ in range(16)])
+    window = sqrt_hann_window(512, device=dev)
+    with torch.no_grad():
+        specs = stft(torch.from_numpy(audio).to(dev), window)  # (16, 257, 973, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranges = observe_ranges(fmodel, specs, batch_size=8)
+    calib_s = time.perf_counter() - t0
+    finite = all(math.isfinite(lo) and math.isfinite(hi) for lo, hi in ranges.values())
+    ok = len(ranges) == 59 and finite
+    say("quant", f"observe_ranges on 16 specs x 973 frames, batch 8 (largest hook input "
+                 f"{8 * 973 * 65 * 16:,} values): {len(ranges)} paths, finite {finite}, "
+                 f"{calib_s:.2f} s {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("quant: observe_ranges")
+    small = specs[:2, :, :64].contiguous()
+    card_r = observe_ranges(fmodel, small, batch_size=2)
+    cpu_r = observe_ranges(fmodel_cpu, small.cpu(), batch_size=2)
+    rel = max(max(abs(a - b) for a, b in zip(card_r[p], cpu_r[p])) / max(map(abs, cpu_r[p]))
+              for p in cpu_r)
+    ok = set(card_r) == set(cpu_r) and rel <= 1e-5
+    say("quant", f"ranges on 2 x 64 frames, card vs CPU port: worst gap {rel:.3g} of the path's "
+                 f"largest bound (bound 1e-5) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("quant: the card's ranges disagree with the CPU port's")
+    res["ranges_rel_gap"] = rel
+
+    # -- the int8 fake-quant model: the card against the CPU, its ring step
+    act_qp = qparams_from_ranges(ranges, 8)
+    qm = QuantizedModel(fmodel, act_qp)
+    qm_cpu = QuantizedModel(fmodel_cpu, act_qp)
+    g = torch.Generator().manual_seed(10)
+    spec = torch.randn((4, 257, 32, 2), generator=g) * 0.3
+    off = qm.apply(spec.to(dev))
+    ok1, msg1 = tie_bounds(qm_cpu.apply(spec), off.cpu())
+    ring, _ = scan_stepper(qm.step, None, qm.init_state(4), spec.to(dev))
+    ok2, msg2 = tie_bounds(off, ring)
+    say("quant", f"int8 QuantizedModel.apply B=4 x 32 frames, card vs CPU: {msg1} "
+                 f"{'ok' if ok1 else 'FAILED'}; ring step T=1 vs apply on the card: {msg2} "
+                 f"{'ok' if ok2 else 'FAILED'}")
+    if not (ok1 and ok2):
+        fail("quant: the fake-quant model")
+
+    serving = Int8Serving(cpu, act_qp, carry_dtype=torch.float32, device=dev)
+    # -- torch._int_mm: its layout rules, then one layer's product vs the CPU
+    rules = []
+    a = torch.randint(-128, 128, (64, 32), generator=g, dtype=torch.int8).to(dev)
+    w = torch.randint(-128, 128, (32, 16), generator=g, dtype=torch.int8).to(dev)
+    for label, fn in (("A row-major, B row-major", lambda: torch._int_mm(a, w)),
+                      ("B column-major", lambda: torch._int_mm(a, w.t().contiguous().t())),
+                      ("A column-major", lambda: torch._int_mm(a.t().contiguous().t(), w)),
+                      ("M=16", lambda: torch._int_mm(a[:16], w)),
+                      ("M=17", lambda: torch._int_mm(a[:17], w)),
+                      ("K=15", lambda: torch._int_mm(a[:, :15].contiguous(), w[:15])),
+                      ("K=8", lambda: torch._int_mm(a[:, :8].contiguous(), w[:8])),
+                      ("N=2", lambda: torch._int_mm(a, w[:, :2].contiguous()))):
+        try:
+            r = fn()
+            torch.cuda.synchronize()
+            exact = torch.equal(r.cpu(), a.cpu().int() @ w.cpu().int()) if label.startswith(
+                ("A", "B")) else True
+            rules.append(f"{label}: accepted{'' if exact else ' (WRONG)'}")
+        except RuntimeError as e:
+            rules.append(f"{label}: refused ({str(e).splitlines()[0][:70]})")
+    say("quant", "torch._int_mm layout rules: " + "; ".join(rules))
+    res["int_mm_rules"] = rules
+    BS = 8192
+    q = torch.randint(-128, 128, (BS, 33, 80), generator=g, dtype=torch.int8)
+    m = serving.W["en1"]  # the weights only: no product has run yet
+    acc = Int8Serving._mm(q.to(dev), m).cpu()
+    want = Int8Serving._mm(q, {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in m.items()})
+    ok = torch.equal(acc, want)
+    say("quant", f"en1 product (M={BS * 33}, K=80, N=16) by torch._int_mm vs the CPU int32 "
+                 f"product: bit-identical {ok} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("quant: torch._int_mm accumulators")
+
+    # -- the int8 serving step against the card's fake-quant step: at the
+    # JAX test's B=2, bounded; at B=256 reported (more values, so more ties
+    # on which one quantum flips)
+    for B8 in (2, 256):
+        spec = (torch.randn((B8, 257, 20, 2), generator=g) * 0.3).to(dev)
+        st8, st_sim = serving.init_state(B8), qm.init_state(B8)
+        y8, ys = [], []
+        for t in range(20):
+            y8.append(serving.step(st8, spec[:, :, t : t + 1])[0])
+            ys.append(qm.step(None, st_sim, spec[:, :, t : t + 1])[0])
+        ok, msg = tie_bounds(torch.cat(ys, 2), torch.cat(y8, 2))
+        verdict = ("ok" if ok else "FAILED") if B8 == 2 else "(reported)"
+        say("quant", f"Int8Serving B={B8} x 20 frames (f32 carry) vs the fake-quant step on the "
+                     f"card: {msg} {verdict}")
+        if B8 == 2 and not ok:
+            fail("quant: the int8 step disagrees with the fake-quant step")
+
+    # -- the int8 step timed at 8,192 and 32,768 streams (bf16 skips)
+    layered_bytes = sum(v.numel() * v.element_size() for k, v in
+                        GTCRNMicro(device=dev).init_state(1, dtype=torch.bfloat16).items()
+                        if k != "step")
+    serving = Int8Serving(cpu, act_qp, device=dev)
+    for B in (8192, 32768):
+        st = serving.init_state(B)
+        spec = (torch.randn((B, 257, 1, 2), generator=g) * 0.3).to(dev)
+        ms = cuda_ms(torch, lambda: serving.step(st, spec), n=10, warm=3)
+        nbytes = sum(v.numel() for k, v in st.items() if k != "step")
+        res[f"int8_step_ms_B{B}"] = ms
+        say("quant", f"Int8Serving step B={B} (bf16 skips): {ms:.3f} ms per step (CUDA events, "
+                     f"median of 10), {B / (ms / 16):.0f} stream-hops per 16 ms; int8 state "
+                     f"{nbytes / 2**20:.1f} MiB = {nbytes / B:.0f} B per stream, the layered bf16 "
+                     f"state {layered_bytes * B / 2**20:.1f} MiB ({layered_bytes} B per stream); "
+                     f"card {card}")
+        say("quant", f"B={B}: " + idle_share(torch, lambda i: serving.step(st, spec), n=5))
+        qa = torch.randint(-128, 128, (B * 33, 80), dtype=torch.int8, device=dev)
+        mm_ms = cuda_ms(torch, lambda: torch._int_mm(qa, m["w"]), n=10, reps=10)
+        mm_bytes = qa.numel() + m["w"].numel() + 4 * B * 33 * 16
+        mm_ops = 2 * B * 33 * 80 * 16
+        mm_bound = max(mm_bytes / H100_HBM_BYTES, mm_ops / H100_INT8_OPS) * 1e3
+        by = "bytes" if mm_bytes / H100_HBM_BYTES >= mm_ops / H100_INT8_OPS else "operations"
+        res[f"int_mm_en1_ms_B{B}"] = mm_ms
+        say("quant", f"B={B}: torch._int_mm of en1 (the step's largest contraction, M={B * 33}, "
+                     f"K=80, N=16): {mm_ms:.4f} ms, bound {mm_bound:.4f} ms by {by} "
+                     f"({mm_bound / mm_ms:.1%} of it)")
+        del st, spec, qa
+
+    # -- QAT: 20 steps at 8 x 4 s through the int8 fake-quant graph
+    model = GTCRNMicro.from_params(params, device=dev)
+    noisy = np.stack([smoke_pair(rng, 4 * 16000)[1] for _ in range(8)]).astype(np.float32)
+    target = qat.enhance_fp32_batch(model, noisy)
+    qat_qp = qat.calibrate_act_qparams(model, noisy)
+    running = model.encoder.en0.bn.running_mean.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = qat.qat_finetune(model, noisy, target, qat_qp, steps=20, batch_size=8, max_lr=1e-3,
+                              log_every=0)
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    ok = (all(map(math.isfinite, losses)) and statistics.mean(losses[-5:])
+          < statistics.mean(losses[:5]) and torch.equal(model.encoder.en0.bn.running_mean, running))
+    res.update(qat_step_ms=step_ms, qat_losses=losses)
+    say("quant", f"QAT 20 steps B=8 x 4 s (int8 fake-quant, freeze_bn): {step_ms:.1f} ms per step "
+                 f"(host clock, a loss read per step); loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+                 f"(mean of the first 5 {statistics.mean(losses[:5]):.4f}, last 5 "
+                 f"{statistics.mean(losses[-5:]):.4f}), running statistics kept "
+                 f"{'ok' if ok else 'FAILED'}; card {card}")
+    if not ok:
+        fail("quant: QAT did not train")
+    say("quant", f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
@@ -852,6 +1057,9 @@ def main() -> None:
 
     # -- 7. train ---------------------------------------------------------
     train_phase(torch, dev, params, card)
+
+    # -- 8. quant ---------------------------------------------------------
+    quant_phase(torch, dev, params, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],

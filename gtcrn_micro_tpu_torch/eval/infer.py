@@ -38,8 +38,9 @@ def _bucket_frames(n_frames: int, min_bucket: int = 64) -> int:
 
 def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
                  progress: bool = True) -> dict[str, np.ndarray]:
-    """Enhance wavs with ``model`` (a layered ``GTCRNMicro`` on ``device``)
-    in bucket-padded batches; returns path -> float32 waveform at 16 kHz."""
+    """Enhance wavs with ``model`` (a layered ``GTCRNMicro`` on ``device``,
+    or its ``quant.ptq.QuantizedModel``) in bucket-padded batches; returns
+    path -> float32 waveform at 16 kHz."""
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not on {dev}")
@@ -155,7 +156,10 @@ def write_enhanced(model, noisy_dir: str, clean_dir: str | None, enh_dir: str,
 def main(args=None) -> None:
     """Enhance every wav of the config's ``test_dataset.noisy_dir`` into
     ``network.enh_folder`` with the params of ``network.checkpoint``
-    (:func:`load_params`)."""
+    (:func:`load_params`).  ``--quant``: int8 simulated inference (the
+    reference's tflite_infer.py): calibrate the activation ranges on 32 wavs
+    of ``--calib_dir`` (the noisy dir by default), then enhance with the
+    fake-quant model."""
     from gtcrn_micro_tpu_torch.models.registry import get_model
     from gtcrn_micro_tpu_torch.utils.config import load_config
 
@@ -163,13 +167,34 @@ def main(args=None) -> None:
     parser.add_argument("-C", "--config", default="configs/cfg_infer.yaml")
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--device", default=None)
+    parser.add_argument("--quant", action="store_true")
+    parser.add_argument("--calib_dir", default=None)
+    parser.add_argument("--act_bits", type=int, default=8, choices=(8, 16))
+    parser.add_argument("--per_channel_acts", action="store_true",
+                        help="per-lane activation scales")
+    parser.add_argument("--integer_pc", action="store_true",
+                        help="with --per_channel_acts: simulate the full-integer per-channel "
+                             "deployment (weight rounding on act-scale-folded tensors)")
     ns = parser.parse_args(args)
+    if ns.integer_pc and not ns.per_channel_acts:
+        parser.error("--integer_pc requires --per_channel_acts")
     dev = resolve_device(ns.device)
     cfg = load_config(ns.config)
 
     model = get_model(cfg.get("network_name", "gtcrn_micro"), device=dev,
                       **cfg.get("network_config", {}))
     model.load_params(load_params(cfg["network"]["checkpoint"], device=dev))
+    if ns.quant:
+        from gtcrn_micro_tpu_torch.quant.calibration import calibration_specs
+        from gtcrn_micro_tpu_torch.quant.ptq import make_quantized_model
+
+        calib_dir = ns.calib_dir or cfg["test_dataset"]["noisy_dir"]
+        model = make_quantized_model(model, calibration_specs(calib_dir, n_wavs=32),
+                                     act_bits=ns.act_bits, per_channel_acts=ns.per_channel_acts,
+                                     v4=ns.integer_pc)
+        tag = (" per-channel v4" if ns.integer_pc
+               else " per-channel" if ns.per_channel_acts else "")
+        print(f"int{ns.act_bits}{tag} PTQ model calibrated on {calib_dir}")
     write_enhanced(model, cfg["test_dataset"]["noisy_dir"], cfg["test_dataset"].get("clean_dir"),
                    cfg["network"]["enh_folder"], batch_size=ns.batch_size, device=dev)
 

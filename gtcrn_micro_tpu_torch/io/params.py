@@ -3,8 +3,9 @@
 - :func:`params_from_numpy`: a JAX params pytree given as nested numpy
   arrays (``jax.tree.map(np.asarray, params)``) -> the port's tensors.
 - :func:`load_params_npz`: a flat ``.npz`` keyed by ``/``-joined paths.
-- :func:`state_from_jax`: a JAX serving state (fused or layered) -> the
-  port's state.
+- :func:`state_from_jax`: a JAX serving state (fused, layered or int8)
+  -> the port's state.
+- :func:`act_qp_from_jax`: JAX activation ``QParams`` -> the port's.
 """
 
 from __future__ import annotations
@@ -60,9 +61,10 @@ def state_from_jax(state_np: dict, dtype=torch.float32, device=None) -> dict:
     """JAX serving state (numpy arrays) -> the port's state for the same
     stream history.
 
-    - Layered ``GTCRNMicro`` state (keys are ``/``-joined paths): the same
-      dict, ``(B, L, F, C)`` caches, ``psum_*`` pairs and narrow rings with
-      their dtypes kept (``dtype`` is not used), ``step`` as an integer.
+    - Layered ``GTCRNMicro`` or ``Int8Serving`` state (keys are
+      ``/``-joined paths): the same dict, ``(B, L, F, C)`` caches, ``psum_*``
+      pairs, narrow and int8 rings with their dtypes kept (``dtype`` is not
+      used), ``step`` as an integer.
     - Fused state, ``{name: (L, *frame, B)}`` rings in ``dtype``:
       FusedGTCRNMicro rings are tile-major ``(L, n_tiles, *frame, tile)``;
       GridFusedGTCRNMicro rings are ``(L, *frame, B)`` with the frequency
@@ -85,3 +87,16 @@ def state_from_jax(state_np: dict, dtype=torch.float32, device=None) -> dict:
         v = np.ascontiguousarray(v.astype(np.float32))
         out[name] = torch.from_numpy(v).to(dev, dtype)
     return out
+
+
+def act_qp_from_jax(act_qp: dict, device=None) -> dict:
+    """JAX activation params ``{path: QParams}`` (scale and zero as arrays,
+    scalar or per-lane) -> the port's ``quant.fake_quant.QParams``, float32
+    bit for bit."""
+    from gtcrn_micro_tpu_torch.quant.fake_quant import QParams
+
+    dev = resolve_device(device)
+    return {path: QParams(_tensor(np.asarray(qp.scale, np.float32), dev),
+                          _tensor(np.asarray(qp.zero, np.float32), dev),
+                          int(qp.qmin), int(qp.qmax))
+            for path, qp in act_qp.items()}

@@ -267,12 +267,12 @@ class GTCRNMicro(nn.Module):
         out = torch.stack([real * m_r - imag * m_i, imag * m_r + real * m_i], dim=-1)
         return out.transpose(1, 2)
 
-    def apply(self, spec, training: bool = False):
+    def apply(self, spec, training: bool = False, quant=None):
         """Offline forward of spec (B, 257, T, 2), in the model's dtype on its
         device.  Returns the enhanced spec; in training mode ``(out, stats)``
         with the BatchNorm batch statistics by path.  Autograd follows the
-        caller's grad mode."""
-        ctx = Ctx(training=training)
+        caller's grad mode.  ``quant``: a quantization hook (``quant/ptq.py``)."""
+        ctx = Ctx(training=training, quant=quant)
         with exact_f32():
             out = self(spec, ctx)
         return (out, ctx.stats) if training else out
@@ -307,10 +307,11 @@ class GTCRNMicro(nn.Module):
             state["step"] = 0
         return state
 
-    def step(self, params, state: dict, spec):
+    def step(self, params, state: dict, spec, quant=None):
         """One streaming step over a chunk: spec (B, 257, T, 2) -> (enhanced
         spec, the same state dict, updated in place).  ``params`` is
-        ignored.  With ring state T must be a power of two <= 16."""
+        ignored.  With ring state T must be a power of two <= 16.  ``quant``:
+        a quantization hook, as for :meth:`apply`."""
         del params
         ring = "step" in state
         T = spec.shape[2]
@@ -318,7 +319,8 @@ class GTCRNMicro(nn.Module):
             raise ValueError(f"ring state needs a power-of-two chunk <= 16, got T={T}")
         # the cache strategy is encoded in the state's own keys
         l2_psum = ring and any(k.endswith("psum_a") for k in state)
-        ctx = Ctx(state=state, ring=ring, step=state.get("step", 0), l2_psum=l2_psum)
+        ctx = Ctx(state=state, ring=ring, step=state.get("step", 0), l2_psum=l2_psum,
+                  quant=quant)
         with torch.no_grad(), exact_f32():
             out = self(spec, ctx)
         if ring:

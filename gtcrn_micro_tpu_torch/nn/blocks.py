@@ -1,7 +1,9 @@
 """GTCRN-Micro building blocks, one definition for offline and streaming.
 
 Counterpart of the JAX package's ``nn/blocks.py``; submodule names are the
-JAX param names, so a module's path in the tree is its param path.
+JAX param names, so a module's path in the tree is its param path.  The
+pointwise layers also carry their JAX scope name (``pw1``, ``pw2``, ``pw3``),
+the name of their quantization boundary.
 Reference geometry:
 
 - ConvBlock:     gtcrn_micro/models/gtcrn_micro.py:142-164
@@ -74,7 +76,7 @@ class GTConvBlock(nn.Module):
                  use_deconv: bool = False):
         super().__init__()
         half = c_in // 2
-        self.point_conv1 = Pointwise(half, hidden)
+        self.point_conv1 = Pointwise(half, hidden, quant_name="pw1")
         self.point_bn1 = BatchNorm(hidden)
         self.point_act = PReLU()
         self.depth_conv = CausalConv2d(hidden, hidden, kernel, freq_pad=freq_pad,
@@ -82,7 +84,7 @@ class GTConvBlock(nn.Module):
                                        groups=1 if use_deconv else 16)
         self.depth_bn = BatchNorm(hidden)
         self.depth_act = PReLU()
-        self.point_conv2 = Pointwise(hidden, half)
+        self.point_conv2 = Pointwise(hidden, half, quant_name="pw2")
         self.point_bn2 = BatchNorm(half)
         self.tra = TRALite(half)
 
@@ -103,13 +105,13 @@ class TCN(nn.Module):
     def __init__(self, channels: int, kernel: int = 3, dilation: int = 1):
         super().__init__()
         c = channels
-        self.conv1 = Pointwise(c, c)
+        self.conv1 = Pointwise(c, c, quant_name="pw1")
         self.bn1 = BatchNorm(c)
         self.act1 = PReLU()
         self.conv2 = CausalConv2d(c, c, (kernel, 1), dilation=(dilation, 1), groups=c)
         self.bn2 = BatchNorm(c)
         self.act2 = PReLU()
-        self.conv3 = Pointwise(c, c)
+        self.conv3 = Pointwise(c, c, quant_name="pw3")
         self.bn3 = BatchNorm(c)
         self.act3 = PReLU()
 

@@ -25,6 +25,18 @@ Streaming states are flat dicts keyed by the JAX paths
 its place in the module tree (:func:`name_paths`), so no scope stack is
 threaded through the calls.  A streaming step updates the state tensors in
 place.
+
+Quantization hooks (``ctx.quant``, see ``quant/ptq.py``): every conv and
+matmul boundary calls ``quant.act(path, x)`` on its input and then
+``quant.weight(path, w, channel_axis)`` on its weight, always in that order
+(``FakeQuantizerV4`` pairs a weight with the act before it).  The paths are
+the JAX package's scope names, which differ from the param names for the
+pointwise layers (``pw1`` for ``point_conv1``, ``pw3`` for ``conv3``): each
+layer's ``qpath`` comes from :func:`name_paths` with its ``quant_name``.
+Offline the hook sees the time-padded input, so the padding zeros enter an
+observed range as in JAX; a streaming step hooks the incoming chunk before
+the cache stores it, so the cache holds quantized frames (fake-quant is
+idempotent and 0 is on the grid).
 """
 
 from __future__ import annotations
@@ -66,12 +78,13 @@ class Ctx:
       as in the JAX package (``store_dtype`` only matters for
       ``init_state``: a step casts on read and on write to the state's own
       dtypes);
-    - ``quant``: a quantization hook, None here.
+    - ``quant``: a quantization hook (``quant/ptq.py``: ``RangeObserver``,
+      ``FakeQuantizer``), or None for the float path.
     """
 
     def __init__(self, *, training: bool = False, state: dict | None = None,
                  initializing: bool = False, ring: bool = False, step: int = 0,
-                 l2_psum: bool = False, store_dtype: Any = None):
+                 l2_psum: bool = False, store_dtype: Any = None, quant: Any = None):
         self.training = training
         self.state = state
         self.initializing = initializing
@@ -79,7 +92,7 @@ class Ctx:
         self.step = step
         self.l2_psum = l2_psum
         self.store_dtype = store_dtype
-        self.quant: Any = None
+        self.quant = quant
         self.new_state: dict[str, tuple] = {}
         self.stats: dict[str, torch.Tensor] = {}
 
@@ -91,19 +104,34 @@ class Ctx:
 
 class Layer(nn.Module):
     """A module that knows its path in the model tree (``encoder/en2/tra``),
-    which prefixes its state and stats keys."""
+    which prefixes its state and stats keys, and its quantization path
+    ``qpath``, the same with its own name replaced by ``quant_name``."""
 
     path = ""
+    qpath = ""
+    quant_name: str | None = None
 
     def key(self, leaf: str) -> str:
         return f"{self.path}/{leaf}"
 
+    def q_act(self, ctx: Ctx, leaf: str, x):
+        return x if ctx.quant is None else ctx.quant.act(f"{self.qpath}/{leaf}", x)
+
+    def q_weight(self, ctx: Ctx, leaf: str, w, channel_axis: int):
+        if ctx.quant is None:
+            return w
+        return ctx.quant.weight(f"{self.qpath}/{leaf}", w, channel_axis)
+
 
 def name_paths(root: nn.Module) -> None:
-    """Give every :class:`Layer` under ``root`` its ``/``-joined path."""
+    """Give every :class:`Layer` under ``root`` its ``/``-joined path and
+    quantization path."""
     for name, m in root.named_modules():
         if isinstance(m, Layer):
             m.path = name.replace(".", "/")
+            parent, _, own = m.path.rpartition("/")
+            own = m.quant_name or own
+            m.qpath = f"{parent}/{own}" if parent else own
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +296,13 @@ class CausalConv2d(Layer):
 
     def forward(self, ctx: Ctx, x):
         L = self.time_context
+        if L == 0 or ctx.offline:
+            xin = self.q_act(ctx, "in", tF.pad(x, (0, 0, 0, 0, L, 0)) if L else x)
+        else:  # the chunk is quantized before the cache stores it
+            x = self.q_act(ctx, "in", x)
+        w = self.q_weight(ctx, "w", self.w, 3)
         if L == 0:
-            return self._conv(x)
+            return self._conv(xin, w)
         kT, d = self.kernel[0], self.dilation[0]
         psum = ctx.ring and ctx.l2_psum and kT == 3 and d == 1
         if ctx.initializing:
@@ -280,26 +313,30 @@ class CausalConv2d(Layer):
             else:
                 ctx.new_state[self.key("ring" if ctx.ring else "cache")] = (L, F, C)
         if ctx.offline:
-            return self._conv(tF.pad(x, (0, 0, 0, 0, L, 0)))
+            return self._conv(xin, w)
         if psum:
-            c0, c1, c2 = (self._conv(x, self.w[j : j + 1], bias=False) for j in range(3))
+            c0, c1, c2 = (self._conv(x, w[j : j + 1], bias=False) for j in range(3))
             out = _psum(ctx, self, c0, c1, c2)
             return out if self.b is None else out + self.b
         cache = ctx.state[self.key("ring" if ctx.ring else "cache")]
         xin, dil = _window(ctx, cache, x, d, kT - 1)
-        return self._conv(xin, time_dilation=dil)
+        return self._conv(xin, w, time_dilation=dil)
 
 
 class Pointwise(Layer):
-    """1x1 conv over channels, ``x @ W + b`` on (B, T, F, C)."""
+    """1x1 conv over channels, ``x @ W + b`` on (B, T, F, C).  ``quant_name``
+    is the JAX scope name of the layer (``pw1``), its quantization path."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, quant_name: str | None = None):
         super().__init__()
+        self.quant_name = quant_name
         self.w = nn.Parameter(torch.zeros(c_in, c_out))
         self.b = nn.Parameter(torch.zeros(c_out))
 
     def forward(self, ctx: Ctx, x):
-        return tF.linear(x, self.w.t(), self.b)
+        x = self.q_act(ctx, "in", x)
+        w = self.q_weight(ctx, "w", self.w, 1)
+        return tF.linear(x, w.t(), self.b)
 
 
 class TRALite(Layer):
@@ -321,23 +358,27 @@ class TRALite(Layer):
         """x: (B, T, F, C) -> gated x, same shape."""
         e = (x * x).mean(dim=2)  # (B, T, C)
         k, L, T = self.kernel, self.kernel - 1, e.shape[1]
-        w = self.depth_w
         psum = ctx.ring and ctx.l2_psum
         if ctx.initializing:
             if psum:
                 ctx.new_state[self.key("psum_b")] = ctx.new_state[self.key("psum_a")] = (1, e.shape[2])
             else:
                 ctx.new_state[self.key("ring" if ctx.ring else "cache")] = (L, e.shape[2])
+        if ctx.offline:
+            e_cat, dil = self.q_act(ctx, "energy", tF.pad(e, (0, 0, L, 0))), 1
+        else:  # the energies are quantized before the cache stores them
+            e = self.q_act(ctx, "energy", e)
+        w = self.q_weight(ctx, "depth_w", self.depth_w, 1)
         if psum and not ctx.offline:
             y = self.depth_b + _psum(ctx, self, e * w[0], e * w[1], e * w[2])
         else:
-            if ctx.offline:
-                e_cat, dil = tF.pad(e, (0, 0, L, 0)), 1
-            else:
+            if not ctx.offline:
                 cache = ctx.state[self.key("ring" if ctx.ring else "cache")]
                 e_cat, dil = _window(ctx, cache, e, 1, L)
             y = self.depth_b
             for i in range(k):
                 y = y + e_cat[:, i * dil : i * dil + T] * w[i]
-        g = torch.sigmoid(tF.linear(y, self.point_w.t(), self.point_b))
+        y = self.q_act(ctx, "gate_in", y)
+        point_w = self.q_weight(ctx, "point_w", self.point_w, 1)
+        g = torch.sigmoid(tF.linear(y, point_w.t(), self.point_b))
         return x * g[:, :, None, :]

@@ -238,12 +238,16 @@ def _spectra(noisy, clean, window, cfg: TrainerConfig, dev):
 def make_train_step(model: GTCRNMicro, optimizer: Adam,
                     loss_cfg: HybridLossConfig = HybridLossConfig(),
                     trainer_cfg: TrainerConfig = TrainerConfig(),
-                    freeze_bn: bool = False, compute_dtype=None, device=None) -> Callable:
+                    quantizer=None, freeze_bn: bool = False, compute_dtype=None,
+                    device=None) -> Callable:
     """Returns ``step(noisy, clean) -> loss``: one update of ``model`` and
     ``optimizer`` in place from a batch of noisy/clean audio (B, samples),
     float or int16, numpy or tensors.  The loss is a 0-d float32 tensor on
     the device (no wait for the device).
 
+    ``quantizer``: a ``ctx.quant`` hook (``quant.ptq.FakeQuantizer``) for
+    quantization-aware training: fake-quant is a straight-through estimator,
+    so the same step trains through the int8 grid.
     ``freeze_bn``: normalise with the running statistics and leave them
     alone (fine-tuning a trained checkpoint); gamma and beta still train.
     ``compute_dtype``: ``torch.bfloat16`` for bf16 forward and backward on
@@ -265,7 +269,7 @@ def make_train_step(model: GTCRNMicro, optimizer: Adam,
     def train_step(noisy, clean):
         with torch.enable_grad(), exact_f32(), _without_onednn(cpu_bf16):
             noisy_spec, clean_spec = _spectra(noisy, clean, window, trainer_cfg, dev)
-            ctx = Ctx(training=not freeze_bn)
+            ctx = Ctx(training=not freeze_bn, quant=quantizer)
             enhanced = forward(noisy_spec, ctx).float()  # the loss is always float32
             loss = hybrid_loss(enhanced, clean_spec, loss_cfg)
             for p in params:

@@ -65,10 +65,15 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
         CohortServer(layered, None, batch=8, n_cohorts=1, dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         enhance_wavs(layered, [])
+    from gtcrn_micro_tpu_torch.ops.int8_step import Int8Serving
+    from gtcrn_micro_tpu_torch.quant import parity, qat
+
     opt = make_optimizer(layered, device="cpu")
+    files = ["--checkpoint", "x.npz", "--wav_dir", "d", "--wav", "x.wav", "--calib_dir", "d"]
     for call in (lambda: make_optimizer(layered), lambda: make_train_step(layered, opt),
                  lambda: make_eval_step(layered), lambda: train_run({}),
-                 lambda: infer_main(["-C", "cfg.yaml"])):
+                 lambda: infer_main(["-C", "cfg.yaml"]), lambda: Int8Serving(params, {}),
+                 lambda: parity.main(files[:2] + files[4:]), lambda: qat.main(files[:4])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
