@@ -81,6 +81,26 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               idle share, top operations, state bytes) and en1's ``_int_mm``
               time against its bound; 20 QAT steps at 8 x 4 s (the loss
               falls, the running statistics stay).
+9. dist    -- data parallelism and the deployment export (``parallel/``,
+              ``io/export_native.py``, ``runtime/native.py``; the sharded
+              server runs kernel B2): two f32 training steps at B=4 x 1 s
+              with a one-rank NCCL group against no group (loss, gradients,
+              params and running statistics bit-identical), and both steps
+              timed at 8 x 10 s with their device operations and idle
+              share; where two cards are present, 2 NCCL ranks against one
+              process (``parallel/multiproc.py``: rtol 1e-5, atol 2e-5), the
+              B2 server over ``make_mesh(2)`` against the unsharded one
+              (within 2^-7) and ``serve --devices 2`` (``--multi-card`` runs
+              only these, after the build, on a machine with two cards);
+              ``CohortServer`` B2 bf16 8,192 x 2 cohorts, 8 intervals, on a
+              one-device mesh (bit-identical to unsharded) and two shards
+              of 4,096 on this card (within 2^-7 of the largest magnitude),
+              launches counted, the served step timed for all three; GTM1
+              from the card's params and GTM8 int8 from phase 8's ranges
+              byte-identical to the CPU port's files, then ``NativeEngine``
+              (built by g++, on the host CPU) on them against B2 f32 on
+              the card (< 1e-5) and the card's int8 fake-quant ring step
+              (< 5e-4 max(max|y|, 1)) over 20 frames.
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -324,7 +344,7 @@ def layered_phase(torch, dev, params, spec, card) -> dict:
                 finite = finite and bool(torch.isfinite(out).all())
                 if c == 0:
                     silent_max = max(silent_max, float(out[5].abs().max()))
-        slot, st, dsp = 7, srv._states[1], srv._dsp[1]
+        slot, st, dsp = 7, srv._states[1][0], srv._dsp[1][0]  # cohort 1, its only shard
         rows = [v for k, v in st.items() if k != "step"] + [dsp.in_buf, dsp.ola_buf]
         busy = all(float(v[slot].abs().max()) > 0 for v in rows)
         srv.reset_slot(1, slot)
@@ -783,6 +803,306 @@ def quant_phase(torch, dev, params, card) -> dict:
     if not ok:
         fail("quant: QAT did not train")
     say("quant", f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    res.update(act_qp=act_qp, folded=folded)
+    return res
+
+
+def multi_card_checks(torch, dev, params, card) -> dict:
+    """What needs two cards: 2 NCCL ranks (one per card) against one
+    process; the B2 bf16 audio server split over ``make_mesh(2)`` against the
+    unsharded server (within 2^-7 of the largest magnitude) and against two
+    shards on one card (reported), each card's backend launching its own
+    kernel, the served step timed; then ``serve --devices 2``."""
+    import contextlib
+    import io
+    import re
+
+    from gtcrn_micro_tpu_torch import serve
+    from gtcrn_micro_tpu_torch.parallel import multiproc
+    from gtcrn_micro_tpu_torch.parallel.mesh import canonical, make_mesh
+
+    res = {}
+    errs = multiproc.compare(multiproc.run_ranks(2, "cuda"), multiproc.train_step(dev))
+    ok = all(errs[k] <= 1 for k in ("loss", "params", "grads")) and errs["ranks"] == 0
+    say("dist", f"2 NCCL ranks vs one process (4 x 4,096 samples, seed 7): worst over "
+                f"bound loss {errs['loss']:.3g} (rtol 1e-5), params {errs['params']:.3g} "
+                f"(atol 2e-5), gradients {errs['grads']:.3g} (1e-4 of the largest); ranks "
+                f"agree {errs['ranks'] == 0} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("dist: two ranks disagree with one process")
+    res["nccl_2_ranks_over_bound"] = errs
+
+    BS, K, n_int, bf16 = 8192, 2, 8, torch.bfloat16
+    meshes = {"unsharded": None, "two shards on cuda:0": [dev, dev], "make_mesh(2)": make_mesh(2)}
+    srvs = {name: serve.CohortServer(None, params, batch=BS, n_cohorts=K, dtype=bf16,
+                                     mode="audio", dft="mxu", device=None if m else dev, mesh=m)
+            for name, m in meshes.items()}
+    two = srvs["make_mesh(2)"]
+    for s in srvs.values():
+        for b in s.backends:
+            b.launches = 0
+    ga = torch.Generator(device=dev).manual_seed(14)
+    worst = {"vs unsharded": 0.0, "vs two shards on cuda:0": 0.0}
+    for _ in range(n_int):
+        for c in range(K):
+            chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(bf16)
+            outs = {name: s.step(c, chunk).float() for name, s in srvs.items()}
+            for key, ref in (("vs unsharded", outs["unsharded"]),
+                             ("vs two shards on cuda:0", outs["two shards on cuda:0"])):
+                worst[key] = max(worst[key], float((outs["make_mesh(2)"] - ref).abs().max())
+                                 / float(ref.abs().max()))
+    torch.cuda.synchronize()
+    cards = [str(canonical(b.device)) for b in two.backends]
+    launches = [b.launches for b in two.backends]
+    ok = (worst["vs unsharded"] <= 2 ** -7 and cards == ["cuda:0", "cuda:1"]
+          and launches == [n_int * K] * 2)
+    res["two_card_worst_rel"] = worst
+    say("dist", f"audio server B2 bf16 {n_int} intervals x {K} cohorts x {BS} streams over "
+                f"make_mesh(2): worst {worst['vs unsharded']:.3g} of the largest magnitude vs "
+                f"unsharded (bound 2^-7), {worst['vs two shards on cuda:0']:.3g} vs two shards on "
+                f"one card (reported); backends on {cards}, B2 launches {launches} "
+                f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("dist: serving over two cards disagrees with the unsharded server")
+    chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(bf16)
+    served = {name: [] for name in srvs}
+    for name in list(srvs) + list(reversed(srvs)):
+        served[name].append(cuda_ms(torch, lambda: srvs[name].step(0, chunk), n=30, warm=4))
+    res["two_card_served_step_ms"] = served
+    say("dist", "served step B=8192 bf16 (CUDA events on cuda:0, median of 30, in the order "
+                "unsharded, two shards on one card, make_mesh(2), then reversed): " + "; ".join(
+                    f"{name} {v[0]:.3f} / {v[1]:.3f} ms" for name, v in served.items())
+        + f"; card {card}")
+    del srvs, two
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--devices", "2", "--seconds", "1"])
+    snr = re.search(r"SNR: (\S+) dB", buf.getvalue())
+    ok = snr is not None and math.isfinite(float(snr.group(1)))
+    say("dist", f"serve --devices 2 --seconds 1: {buf.getvalue().strip().splitlines()[-1]} "
+                f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("dist: serve --devices 2 did not finish")
+    return res
+
+
+def dist_phase(torch, dev, params, card, act_qp, folded, native_build) -> dict:
+    """Phase 9: data parallelism (a one-rank NCCL group's training step
+    against no group, two ranks where two cards are present, sharded
+    serving) and the deployment export (GTM1 and GTM8 written from the card
+    against the CPU port's files, the native engine built by g++ on the host
+    against B2 and the int8 fake-quant step on the card).  ``native_build``
+    is the future of the engine's build, started with the kernels' build."""
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from gtcrn_micro_tpu_torch.io.export_native import (
+        export_native_weights,
+        export_native_weights_int8,
+    )
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+    from gtcrn_micro_tpu_torch.parallel import multiproc
+    from gtcrn_micro_tpu_torch.quant.ptq import QuantizedModel
+    from gtcrn_micro_tpu_torch.runtime.native import NativeEngine
+    from gtcrn_micro_tpu_torch.serve import CohortServer
+    from gtcrn_micro_tpu_torch.train.scheduler import WarmupCosineConfig
+    from gtcrn_micro_tpu_torch.train.trainer import make_optimizer, make_train_step
+    from gtcrn_micro_tpu_torch.utils.make_smoke_data import smoke_pair
+
+    t_phase = time.perf_counter()
+    res = {}
+    sched = WarmupCosineConfig(warmup_steps=5, decay_until_step=100, max_lr=1e-3)
+    cudnn = torch.backends.cudnn
+
+    def trainer(group):
+        model = GTCRNMicro.from_params(params, device=dev)
+        opt = make_optimizer(model, sched, device=dev)
+        return model, make_train_step(model, opt, device=dev, group=group)
+
+    # -- a one-rank NCCL group: the identity, bit for bit (2 steps: the
+    # second update has lr > 0), then its cost at the training shape
+    rng = np.random.default_rng(7)  # phase 7's white noise
+    clean = (rng.standard_normal((4, 16000)) * 0.05).astype(np.float32)
+    noisy = clean + (rng.standard_normal((4, 16000)) * 0.02).astype(np.float32)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{multiproc.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        saved = cudnn.deterministic
+        cudnn.deterministic = True  # only the group may differ between the two runs
+        try:
+            for group in (None, dist.group.WORLD):
+                model, step = trainer(group)
+                losses = [step(noisy, clean) for _ in range(2)]
+                runs.append((torch.stack(losses).cpu(),
+                             {k: v.cpu() for k, v in model.state_dict().items()},
+                             {n: p.grad.cpu() for n, p in model.named_parameters()}))
+        finally:
+            cudnn.deterministic = saved
+        (l0, s0, g0), (l1, s1, g1) = runs
+        same = (torch.equal(l0, l1) and all(torch.equal(s0[k], s1[k]) for k in s0)
+                and all(torch.equal(g0[k], g1[k]) for k in g0))
+        say("dist", f"f32 step B=4 x 1 s, one-rank NCCL group vs no group, 2 steps: losses "
+                    f"{l1.tolist()}, loss, gradients, params and running statistics "
+                    f"bit-identical {same} {'ok' if same else 'FAILED'}")
+        if not same:
+            fail("dist: a one-rank group changed the training step")
+        B, secs = 8, 10.0
+        pairs = [smoke_pair(np.random.default_rng(8), int(secs * 16000)) for _ in range(B)]
+        big = [torch.from_numpy(np.stack([p[i] for p in pairs])).to(dev) for i in (1, 0)]
+        steps = {name: trainer(g)[1] for name, g in (("plain", None), ("group", dist.group.WORLD))}
+        times = {name: [] for name in steps}
+        for name in ("plain", "group", "group", "plain"):
+            times[name].append(cuda_ms(torch, lambda: steps[name](*big), n=5, warm=1))
+        res["train_step_ms"] = times
+        syncs = {}
+        for name, step in steps.items():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    step(*big)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs[name] = sum("synchroniz" in str(w.message) for w in caught)
+        say("dist", f"f32 step B={B} x {secs:.0f} s (CUDA events, median of 5, in the order "
+                    f"plain, group, group, plain): no group {times['plain'][0]:.2f} / "
+                    f"{times['plain'][1]:.2f} ms, one-rank NCCL group {times['group'][0]:.2f} / "
+                    f"{times['group'][1]:.2f} ms; host syncs per step {syncs}; card {card}")
+        for name in ("plain", "group"):
+            say("dist", f"{name}: " + idle_share(torch, lambda i: steps[name](*big), n=5))
+        # one bare all-reduce of a BatchNorm's 16 statistics, as the step issues it
+        x = torch.zeros(16, device=dev)
+        host_us = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                dist.all_reduce(x)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host_us.append((t1 - t0) / 100 * 1e6)
+        dev_us = cuda_ms(torch, lambda: dist.all_reduce(x), n=10, reps=100) * 1e3
+        res["all_reduce_host_us"], res["all_reduce_device_us"] = host_us, dev_us
+        say("dist", f"dist.all_reduce of 16 floats on the one-rank NCCL group: host "
+                    f"{', '.join(f'{u:.1f}' for u in host_us)} us per call to return (3 runs of "
+                    f"100, host clock), {dev_us:.1f} us per call back to back (CUDA events)")
+        del steps, big
+    finally:
+        dist.destroy_process_group()
+
+    # -- two NCCL ranks and serving over two cards, where two cards are present
+    if torch.cuda.device_count() >= 2:
+        res.update(multi_card_checks(torch, dev, params, card))
+    else:
+        say("dist", f"{torch.cuda.device_count()} card present: the 2-rank NCCL check and serving "
+                    f"over two cards need two (the first runs on gloo in "
+                    f"tests/test_torch_parallel.py; `chip_smoke.py --multi-card` on two cards)")
+
+    # -- sharded serving: B2 bf16, 8,192 x 2 cohorts, on no mesh, a one-device
+    # mesh and two shards of 4,096 on this card
+    BS, K, n_int, bf16 = 8192, 2, 8, torch.bfloat16
+    meshes = {"unsharded": None, "mesh [cuda:0]": [dev], "mesh [cuda:0, cuda:0]": [dev, dev]}
+    srvs = {name: CohortServer(None, params, batch=BS, n_cohorts=K, dtype=bf16, mode="audio",
+                               dft="mxu", device=None if m else dev, mesh=m)
+            for name, m in meshes.items()}
+    for s in srvs.values():
+        s.backends[0].launches = 0
+    ga = torch.Generator(device=dev).manual_seed(12)
+    worst = {name: 0.0 for name in srvs}
+    for _ in range(n_int):
+        for c in range(K):
+            chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(bf16)
+            outs = {name: s.step(c, chunk).float() for name, s in srvs.items()}
+            ref = outs["unsharded"]
+            for name, out in outs.items():
+                worst[name] = max(worst[name], float((out - ref).abs().max())
+                                  / float(ref.abs().max()))
+    torch.cuda.synchronize()
+    launches = {name: sum(b.launches for b in {id(b): b for b in s.backends}.values())
+                for name, s in srvs.items()}
+    ok = (worst["mesh [cuda:0]"] == 0.0 and worst["mesh [cuda:0, cuda:0]"] <= 2 ** -7
+          and launches["unsharded"] == launches["mesh [cuda:0]"] == n_int * K
+          and launches["mesh [cuda:0, cuda:0]"] == 2 * n_int * K)
+    res["sharded_worst_rel"] = worst
+    say("dist", f"audio server B2 bf16 {n_int} intervals x {K} cohorts x {BS} streams: one-device "
+                f"mesh vs unsharded worst {worst['mesh [cuda:0]']:.3g} of the largest magnitude "
+                f"(bound 0: bit-identical), two shards {worst['mesh [cuda:0, cuda:0]']:.3g} (bound "
+                f"2^-7); B2 launches {launches} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("dist: sharded serving disagrees with the unsharded server")
+    chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(bf16)
+    served = {name: [] for name in srvs}
+    for name in list(srvs) + list(reversed(srvs)):
+        served[name].append(cuda_ms(torch, lambda: srvs[name].step(0, chunk), n=30, warm=4))
+    res["served_step_ms"] = served
+    say("dist", "served step B=8192 bf16 (CUDA events, median of 30, in the order unsharded, "
+                "one-device mesh, two shards, then reversed): " + "; ".join(
+                    f"{name} {v[0]:.3f} / {v[1]:.3f} ms" for name, v in served.items())
+        + f"; card {card}")
+    del srvs
+
+    # -- export from the card, and the native engine on the host CPU
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    lib, build_s = native_build.result()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        paths = {k: os.path.join(d, k) for k in ("gtm1_card", "gtm1_cpu", "gtm8_card", "gtm8_cpu")}
+        export_native_weights(params, paths["gtm1_card"])
+        export_native_weights(cpu(params), paths["gtm1_cpu"])
+        export_native_weights_int8(to_dev(folded), {p: q.to(dev) for p, q in act_qp.items()},
+                                   paths["gtm8_card"])
+        export_native_weights_int8(folded, {p: q.to("cpu") for p, q in act_qp.items()},
+                                   paths["gtm8_cpu"])
+        blobs = {k: open(p, "rb").read() for k, p in paths.items()}
+        same1 = blobs["gtm1_card"] == blobs["gtm1_cpu"]
+        same8 = blobs["gtm8_card"] == blobs["gtm8_cpu"]
+        say("dist", f"GTM1 from the card's params ({len(blobs['gtm1_card'])} bytes) and GTM8 int8 "
+                    f"from phase 8's ranges ({len(blobs['gtm8_card'])} bytes) vs the CPU port's "
+                    f"export: byte-identical {same1} / {same8} {'ok' if same1 and same8 else 'FAILED'}")
+        if not (same1 and same8):
+            fail("dist: the export from the card differs from the CPU's")
+
+        g = torch.Generator().manual_seed(13)
+        spec = torch.randn((1, 257, 20, 2), generator=g) * 0.3
+        eng = NativeEngine(paths["gtm1_card"], lib_path=lib)
+        b2 = GridFusedGTCRNMicro(params, dtype=torch.float32, device=dev)
+        st = b2.init_state(1)
+        eng8 = NativeEngine(paths["gtm8_card"], lib_path=lib, quant="int8")
+        qm = QuantizedModel(GTCRNMicro.from_params(to_dev(folded), device=dev), act_qp)
+        st8 = qm.init_state(1)
+        err, err8, mag8, host_s = 0.0, 0.0, 0.0, 0.0
+        for t in range(20):
+            frame = spec[:, :, t : t + 1]
+            y = b2.step(None, st, frame.to(dev))[0].cpu().numpy()[0, :, 0]
+            y8 = qm.step(None, st8, frame.to(dev))[0].cpu().numpy()[0, :, 0]
+            t1 = time.perf_counter()
+            yn, yn8 = eng.step(frame[0, :, 0].numpy()), eng8.step(frame[0, :, 0].numpy())
+            host_s += time.perf_counter() - t1
+            err, err8 = max(err, float(np.abs(yn - y).max())), max(err8, float(np.abs(yn8 - y8).max()))
+            mag8 = max(mag8, float(np.abs(y8).max()))
+        ok = err < 1e-5 and err8 < 5e-4 * max(mag8, 1.0)
+        res.update(native_fp32_max_abs=err, native_int8_max_abs=err8, native_build_s=build_s)
+        say("dist", f"NativeEngine (g++ build {build_s:.1f} s beside nvcc in phase 2, runs on the "
+                    f"host CPU) on GTM1 vs "
+                    f"kernel B2 f32 on the card, 20 frames x 1 stream: max-abs {err:.3g} (bound "
+                    f"1e-5); on GTM8 vs the card's int8 fake-quant ring step: max-abs {err8:.3g} "
+                    f"(bound 5e-4 x max(max|y| = {mag8:.3g}, 1)) {'ok' if ok else 'FAILED'}; host "
+                    f"CPU time of one fp32 + one int8 engine step {host_s / 20 * 1e3:.3f} ms "
+                    f"(host clock, not the card's)")
+        if not ok:
+            fail("dist: the native engine disagrees with the card")
+    say("dist", f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return res
 
 
@@ -823,11 +1143,33 @@ def main() -> None:
     from gtcrn_micro_tpu_torch.serve import CohortServer, plan_cohorts
 
     # -- 2. build --------------------------------------------------------
-    secs = _build.build()
+    native_build = None
+    multi_card = "--multi-card" in sys.argv[1:]
+    if "--parity" not in sys.argv[1:] and not multi_card:  # phase 9's host engine beside nvcc
+        from concurrent.futures import ThreadPoolExecutor
+
+        from gtcrn_micro_tpu_torch.runtime.native import build_native
+
+        def timed_build():
+            t0 = time.perf_counter()
+            return build_native(), time.perf_counter() - t0
+
+        with ThreadPoolExecutor(1) as pool:
+            native_build = pool.submit(timed_build)
+            secs = _build.build()
+    else:
+        secs = _build.build()
     say("build", f"built {', '.join(_build.SOURCES)} in {secs:.1f} s "
                  f"({' '.join(_build.NVCC_FLAGS)})")
 
     params = init_params(torch.Generator().manual_seed(0), device=dev)
+    if multi_card:
+        if count < 2:
+            fail(f"--multi-card needs two cards, {count} present")
+        multi_card_checks(torch, dev, params, card)
+        say("done", f"multi-card checks ok in {time.perf_counter() - t_start:.1f} s "
+                    f"(--multi-card: no other phase)")
+        sys.exit(0)
     kernels = {
         "fused_step_b1": dict(cls=FusedGTCRNMicro, lib="fused_step", source="gtcrn_micro_tpu_torch/csrc/fused_step.cu",
                               replaces="gtcrn_micro_tpu/ops/fused_step.py:402"),
@@ -1000,15 +1342,13 @@ def main() -> None:
             continue
         # admit / release / reset: the slot's column of every ring is zeroed
         slot = srv.admit(1)
-        busy = any(float(v[..., slot].abs().max()) > 0 for k, v in srv._states[1].items()
-                   if k != "step")
+        rings = [v for k, v in srv._states[1][0].items() if k != "step"]  # the only shard
+        busy = any(float(v[..., slot].abs().max()) > 0 for v in rings)
         srv.release(1, slot)
         srv.reset_slot(1, slot)
-        zeroed = all(float(v[..., slot].abs().max()) == 0 for k, v in srv._states[1].items()
-                     if k != "step")
-        kept = all(float(v[..., slot - 1].abs().max()) > 0 for k, v in srv._states[1].items()
-                   if k != "step")
-        dsp_zero = float(srv._dsp[1].in_buf[slot].abs().max()) == 0
+        zeroed = all(float(v[..., slot].abs().max()) == 0 for v in rings)
+        kept = all(float(v[..., slot - 1].abs().max()) > 0 for v in rings)
+        dsp_zero = float(srv._dsp[1][0].in_buf[slot].abs().max()) == 0
         if not (busy and zeroed and kept and dsp_zero):
             fail(f"reset_slot: busy {busy} zeroed {zeroed} neighbour kept {kept} dsp {dsp_zero}")
         say("serve", f"admit/release/reset of cohort 1 slot {slot}: its ring columns and DSP "
@@ -1059,7 +1399,10 @@ def main() -> None:
     train_phase(torch, dev, params, card)
 
     # -- 8. quant ---------------------------------------------------------
-    quant_phase(torch, dev, params, card)
+    quant = quant_phase(torch, dev, params, card)
+
+    # -- 9. dist + export ---------------------------------------------------
+    dist_phase(torch, dev, params, card, quant["act_qp"], quant["folded"], native_build)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -57,6 +57,8 @@
 #include <stddef.h>
 #include <string.h>
 
+#include <atomic>
+
 #include "gtcrn_async.cuh"
 
 namespace gtcrn {
@@ -266,14 +268,19 @@ constexpr size_t SMEM_BYTES = Smem<TILE>::TOTAL * sizeof(float);
 // CTA): the kernels' __launch_bounds__, so registers do not hold fewer
 constexpr int MIN_CTAS = 233472 / (SMEM_BYTES + 1024);
 
-// Allow a kernel its dynamic shared memory (once per kernel).
+// Allow a kernel its dynamic shared memory on the current device.  CUDA keeps
+// function attributes per device, so this is done once per kernel and device
+// (bit d of `done`: device d; devices from 64 on set it at every launch).
 template <typename K>
 inline int prepare(K kernel) {
-  static K done = nullptr;
-  if (done == kernel) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (e == cudaSuccess) done = kernel;
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (e == cudaSuccess) done.fetch_or(bit);
   return (int)e;
 }
 

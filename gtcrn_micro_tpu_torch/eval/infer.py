@@ -93,19 +93,22 @@ def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
 
 
 def load_params(checkpoint: str, device=None) -> dict:
-    """Params from ``checkpoint``: a flat ``.npz`` of ``/``-joined param
-    paths (``io/params.load_params_npz``), or a directory of the trainer's
-    ``utils/checkpoint.CheckpointManager``, whose latest step is read (as the
-    JAX package reads an orbax directory).  The reference ``.tar`` waits for
-    its importer (ROADMAP queue A, item 9)."""
+    """Params from ``checkpoint``: the reference's ``.tar``
+    (``io/torch_ckpt.import_reference_checkpoint``), a flat ``.npz`` of
+    ``/``-joined param paths (``io/params.load_params_npz``), or a directory
+    of the trainer's ``utils/checkpoint.CheckpointManager``, whose latest
+    step is read (as the JAX package reads an orbax directory)."""
     from gtcrn_micro_tpu_torch.io.params import load_params_npz, params_from_numpy
+    from gtcrn_micro_tpu_torch.io.torch_ckpt import import_reference_checkpoint
     from gtcrn_micro_tpu_torch.utils.checkpoint import CheckpointManager
 
+    if checkpoint.endswith(".tar"):
+        return import_reference_checkpoint(checkpoint, device=device)
     if os.path.isdir(checkpoint):
         return params_from_numpy(CheckpointManager(checkpoint).restore()["params"], device)
     if not checkpoint.endswith(".npz"):
-        raise ValueError(f"checkpoint {checkpoint!r}: expected a .npz of params or a "
-                         f"checkpoint directory")
+        raise ValueError(f"checkpoint {checkpoint!r}: expected the reference .tar, a .npz of "
+                         f"params or a checkpoint directory")
     return load_params_npz(checkpoint, device=device)
 
 

@@ -79,13 +79,19 @@ class Ctx:
       ``init_state``: a step casts on read and on write to the state's own
       dtypes);
     - ``quant``: a quantization hook (``quant/ptq.py``: ``RangeObserver``,
-      ``FakeQuantizer``), or None for the float path.
+      ``FakeQuantizer``), or None for the float path;
+    - ``rank_mean``: data-parallel training (``parallel/mesh.RankMean``): a
+      differentiable mean over the ranks, each holding an equal shard of the
+      batch, with their count ``world``, so that the BatchNorm statistics
+      are the global batch's; None on one process.
     """
 
     def __init__(self, *, training: bool = False, state: dict | None = None,
                  initializing: bool = False, ring: bool = False, step: int = 0,
-                 l2_psum: bool = False, store_dtype: Any = None, quant: Any = None):
+                 l2_psum: bool = False, store_dtype: Any = None, quant: Any = None,
+                 rank_mean: Any = None):
         self.training = training
+        self.rank_mean = rank_mean
         self.state = state
         self.initializing = initializing
         self.ring = ring
@@ -160,6 +166,12 @@ class BatchNorm(Layer):
     and the unbiased ``batch_var`` in ``ctx.stats``.  The running statistics
     are buffers that the forward never updates: a trainer folds the recorded
     batch statistics in, as the JAX trainer does.
+
+    Under data parallelism (``ctx.rank_mean``) the statistics are the global
+    batch's, as under JAX's sharded jit: the ranks' means are averaged, then
+    the ranks' variances about that global mean, and the unbiased variance
+    counts the global batch.  Each local mean is the one-process mean, so one
+    rank gives the one-process numbers bit for bit.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5):
@@ -174,9 +186,10 @@ class BatchNorm(Layer):
         if ctx.training:
             xf = x.float()
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = (xf - mean).square().mean(dims)
-            n = math.prod(x.shape[:-1])
+            sync = ctx.rank_mean or (lambda t: t)
+            mean = sync(xf.mean(dims))
+            var = sync((xf - mean).square().mean(dims))
+            n = math.prod(x.shape[:-1]) * (ctx.rank_mean.world if ctx.rank_mean else 1)
             ctx.stats[self.key("batch_mean")] = mean.detach()
             ctx.stats[self.key("batch_var")] = (var * (n / max(n - 1, 1))).detach()
             mean, var = mean.to(x.dtype), var.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Cohort serving engine: phase-staggered batched streaming on one GPU.
+"""Cohort serving engine: phase-staggered batched streaming on one GPU, or
+on a mesh of GPUs with each cohort's streams split across them (``mesh=``).
 
 Counterpart of the JAX package's ``serve.py``.  Streams are admitted into
 slots of K independent *cohorts*; each cohort is stepped once per 16 ms
@@ -37,6 +38,12 @@ import dataclasses
 import torch
 
 from gtcrn_micro_tpu_torch import resolve_device
+from gtcrn_micro_tpu_torch.parallel.mesh import (
+    canonical,
+    make_mesh,
+    make_sharded_audio_serving_step,
+    make_sharded_serving_step,
+)
 
 FRAME_S = 0.016
 LATENCY_BUDGET_S = 0.010
@@ -103,7 +110,7 @@ def plan_cohorts(step_time_s: float, batch: int,
 
 
 class CohortServer:
-    """K independent ring-state cohorts over one model backend.
+    """K independent ring-state cohorts over one model backend per device.
 
     ``model`` is a backend instance (see the module docstring) or ``None``
     for a ``GridFusedGTCRNMicro`` built from ``params`` in ``dtype`` on
@@ -113,6 +120,17 @@ class CohortServer:
     backends step one hop at a time, as the JAX fused steps do).
     ``state_opts`` go to the backend's ``init_state`` (the layered model's
     ``l2_psum`` and ``store_dtype``).
+
+    ``mesh``: a list of devices (``parallel.mesh.make_mesh``), given instead
+    of ``device``, over which every cohort's ``batch`` streams are split
+    evenly, with no collectives (``parallel/mesh.py``): the server is on the
+    mesh's first device, where
+    ``model`` lives and chunks are given and returned, and every other
+    device gets a replica of ``model`` (shards on one device share one).
+    Each shard keeps its own state and DSP state per cohort, so a cohort's
+    state is a list with one entry per shard (one without a mesh).  Slots
+    stay numbered over the whole cohort: slot ``s`` is local slot ``s mod
+    (batch / len(mesh))`` of shard ``s // (batch / len(mesh))``.
     """
 
     def __init__(self, model, params, batch: int, n_cohorts: int,
@@ -123,15 +141,17 @@ class CohortServer:
             raise ValueError(f"mode must be 'spec' or 'audio', got {mode!r}")
         if chunk_hops not in (1, 2, 4, 8, 16):
             raise ValueError(f"chunk_hops must be a power of two <= 16, got {chunk_hops}")
-        if mesh is not None:
-            raise NotImplementedError("data-parallel serving over several "
-                                      "GPUs is not ported yet")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("give device or mesh, not both: the server is on mesh[0]")
+        self.mesh = [canonical(resolve_device(d)) for d in (mesh or [device])]
+        self.device = self.mesh[0]
+        if batch % len(self.mesh):
+            raise ValueError(f"batch {batch} does not divide over {len(self.mesh)} devices")
         if model is None:
             from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
 
             model = GridFusedGTCRNMicro(params, dtype=dtype, device=self.device)
-        if model.dtype != dtype or model.device != self.device:
+        if model.dtype != dtype or canonical(model.device) != self.device:
             raise ValueError(f"model is {model.dtype} on {model.device}, the "
                              f"server {dtype} on {self.device}")
         if chunk_hops != 1 and chunk_hops not in model.chunk_sizes:
@@ -145,19 +165,13 @@ class CohortServer:
         self.mode = mode
         self.chunk_hops = chunk_hops
         if mode == "audio":
-            from gtcrn_micro_tpu_torch.dsp.stft import sqrt_hann_window
-            from gtcrn_micro_tpu_torch.dsp.stream_dsp import (
-                init_dsp_state,
-                make_audio_step,
-            )
-
-            window = sqrt_hann_window(model.config.win_len, device=self.device)
-            self._step = make_audio_step(model, window, dft=dft)
-            self._dsp = [init_dsp_state(batch, dtype, self.device)
-                         for _ in range(n_cohorts)]
+            self._step, init_state, init_dsp, self.backends = make_sharded_audio_serving_step(
+                model, self.mesh, params, dft=dft)
+            self._dsp = [init_dsp(batch, dtype) for _ in range(n_cohorts)]
         else:
-            self._step = model.step
-        self._states = [model.init_state(batch, dtype=dtype, **(state_opts or {}))
+            self._step, init_state, self.backends = make_sharded_serving_step(
+                model, self.mesh, params)
+        self._states = [init_state(batch, dtype=dtype, **(state_opts or {}))
                         for _ in range(n_cohorts)]
         self._frames = [0] * n_cohorts
         # clean free slots (rings are zeros) and recycled free slots (rings
@@ -191,21 +205,23 @@ class CohortServer:
         self._recycled[cohort].append(slot)
 
     def reset_slot(self, cohort: int, slot: int) -> None:
-        """Zero one stream's state (idempotent): its slice of every state
-        tensor along the backend's ``batch_axis`` (last for the fused rings,
-        first for the layered state) and its row of the DSP buffers.  A slot
-        waiting in the recycled pool moves back to the clean pool."""
+        """Zero one stream's state (idempotent): in its shard, its slice of
+        every state tensor along the backend's ``batch_axis`` (last for the
+        fused rings, first for the layered state) and its row of the DSP
+        buffers.  A slot waiting in the recycled pool moves back to the clean
+        pool."""
         if slot in self._recycled[cohort]:
             self._recycled[cohort].remove(slot)
             self._free[cohort].append(slot)
-        axis = self.model.batch_axis
-        for k, v in self._states[cohort].items():
+        shard, local = divmod(slot, self.batch // len(self.mesh))
+        axis = self.backends[shard].batch_axis
+        for k, v in self._states[cohort][shard].items():
             if k != "step":
-                v.select(axis, slot).zero_()
+                v.select(axis, local).zero_()
         if self.mode == "audio":
-            d = self._dsp[cohort]
-            d.in_buf[slot] = 0
-            d.ola_buf[slot] = 0
+            d = self._dsp[cohort][shard]
+            d.in_buf[local] = 0
+            d.ola_buf[local] = 0
 
     # -- serving -----------------------------------------------------------
 
@@ -278,9 +294,14 @@ def main(args=None) -> None:
     parser.add_argument("--chunk-hops", type=int, default=1,
                         help="hops per step (throughput mode; layered backend only)")
     parser.add_argument("--device", default=None)
+    parser.add_argument("--devices", type=int, default=1,
+                        help="split each cohort over this many GPUs (with --device cpu: "
+                             "this many CPU shards)")
     ns = parser.parse_args(args)
 
     device = resolve_device(ns.device)
+    mesh = [device] * ns.devices if device.type == "cpu" else make_mesh(ns.devices)
+    device = canonical(mesh[0])
     if ns.params:
         params = load_params_npz(ns.params, device=device)
     else:
@@ -310,7 +331,7 @@ def main(args=None) -> None:
     for label, m, t_hops in ((ns.backend, model, T),
                              ("plain", LayoutGTCRNMicro(params, dtype=dtype, device=device), 1)):
         srv = CohortServer(m, params, batch=ns.batch, n_cohorts=ns.cohorts, dtype=dtype,
-                           mode="audio", device=device, chunk_hops=t_hops)
+                           mode="audio", chunk_hops=t_hops, mesh=mesh)
         cohort = srv.next_cohort()
         slot = srv.admit(cohort)
         feed = torch.zeros((ns.batch, hop * t_hops), dtype=dtype, device=device)
@@ -324,7 +345,8 @@ def main(args=None) -> None:
                     outs.append(got[slot].float().cpu())
         runs[label] = torch.cat(outs)[hop : hop * (hops + 1)]  # drop the center-trim hop
         print(f"{label}: served {hops} hops, {t_hops} per step, through cohort {cohort} "
-              f"slot {slot} ({srv.n_cohorts} cohorts x {srv.batch} slots, {ns.dtype}, {device})")
+              f"slot {slot} ({srv.n_cohorts} cohorts x {srv.batch} slots, {ns.dtype}, "
+              f"{len(mesh)} x {device.type})")
     note = (" (on the CPU the kernel backends run the plain version)"
             if device.type == "cpu" and ns.backend != "layered" else "")
     print(f"{ns.backend} vs plain SNR: {_snr_db(runs['plain'], runs[ns.backend]):.1f} dB{note}")

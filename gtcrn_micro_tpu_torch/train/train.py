@@ -2,8 +2,19 @@
 train.py:37-473):
 
     python -m gtcrn_micro_tpu_torch.train.train -C <cfg.yaml> [--device cpu] [--max-steps N]
+    torchrun --nproc_per_node=N -m gtcrn_micro_tpu_torch.train.train -C <cfg.yaml> --distributed
 
-One process on one device.  Per epoch:
+One process on one device, or with ``--distributed`` one process per GPU
+(gloo processes with ``--device cpu``) in the group ``torchrun`` describes
+(``parallel/mesh.init_distributed``).  Every rank draws the same file
+subsample and batch order from the same seed and steps on its own rows of
+each batch (``parallel/mesh.shard_batch_multiprocess``); the step averages
+the gradients and takes the BatchNorm statistics over the global batch
+(``trainer.make_train_step(group=...)``), so every rank holds the same
+model.  Rank 0 alone archives the config, validates, writes metrics, samples
+and checkpoints and keeps the best snapshot; every rank restores on resume.
+The JAX ``run`` drives every local device from one process; this port runs
+one process per GPU instead.  Per epoch:
 
 - a random file subsample (reference dataloader.py:108-111);
 - one training step per batch (STFT, forward, backward, clip, Adam, BN fold;
@@ -21,8 +32,7 @@ One process on one device.  Per epoch:
 ``run`` takes a ``Config`` or a plain dict and never needs PyYAML: it keeps
 the resolved config as ``config.yaml`` where PyYAML imports and as
 ``config.json`` where it does not.  Only ``main`` needs PyYAML, to read
-``-C``.  Data parallelism (the JAX ``--distributed``) is not ported yet
-(ROADMAP queue A, item 6).
+``-C``.
 """
 
 from __future__ import annotations
@@ -37,12 +47,18 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gtcrn_micro_tpu_torch import resolve_device
 from gtcrn_micro_tpu_torch.dsp.stft import hann_window, istft
 from gtcrn_micro_tpu_torch.io.wav import write_wav
 from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params, nest
 from gtcrn_micro_tpu_torch.models.registry import get_model
+from gtcrn_micro_tpu_torch.parallel.mesh import (
+    init_distributed,
+    replicate_multiprocess,
+    shard_batch_multiprocess,
+)
 from gtcrn_micro_tpu_torch.train.dataloader import PairedWavDataset, PrefetchLoader
 from gtcrn_micro_tpu_torch.train.loss import HybridLossConfig
 from gtcrn_micro_tpu_torch.train.scheduler import WarmupCosineConfig, warmup_cosine_lr
@@ -114,12 +130,40 @@ def _archive_config(config, exp_path: str) -> None:
         yaml.safe_dump(config.to_dict(), f)
 
 
-def run(config, *, device=None, max_steps: int | None = None) -> str:
+def _on_every_rank(group, value):
+    """Rank 0's ``value`` on every rank; an exception rank 0 holds is raised
+    on every rank."""
+    if group is not None:
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=group)
+        value = box[0]
+    if isinstance(value, Exception):
+        raise value
+    return value
+
+
+def run(config, *, device=None, distributed: bool = False, max_steps: int | None = None) -> str:
     """Train as ``config`` says (a ``utils.config.Config`` or dict of the
     ``configs/cfg_train_*.yaml`` form) on ``device`` (``None``: CUDA);
     ``trainer.epochs`` is the TOTAL epoch count, so a resumed run finishes
-    the same recipe.  Returns the experiment directory."""
-    dev = resolve_device(device)
+    the same recipe.  ``distributed``: join the ``torchrun`` group as one
+    rank of data-parallel training (module docstring; the global batch
+    size must divide by the world size).  Returns the experiment
+    directory."""
+    owned = distributed and not dist.is_initialized()
+    if distributed:
+        rank, world, dev, group = init_distributed(device)
+    else:
+        rank, world, dev, group = 0, 1, resolve_device(device), None
+    try:
+        return _run(config, dev, rank, world, group, max_steps)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _run(config, dev, rank: int, world: int, group, max_steps: int | None) -> str:
+    lead = rank == 0
     config = _wrap(dict(config))
     trainer_kw = {**config.get("trainer", {}), **config.get("trainer_overrides", {})}
     trainer_cfg = TrainerConfig(**{k: v for k, v in trainer_kw.items()
@@ -133,13 +177,22 @@ def run(config, *, device=None, max_steps: int | None = None) -> str:
     loss_cfg = HybridLossConfig(**{k: v for k, v in config.get("loss", {}).items()
                                    if k in HybridLossConfig.__dataclass_fields__})
 
-    exp_path = _resolve_exp_path(trainer_cfg)
-    os.makedirs(exp_path, exist_ok=True)
-    _archive_config(config, exp_path)
+    loader_cfg = config.get("train_dataloader", {})
+    if loader_cfg.get("batch_size", 0) % world:
+        raise ValueError(f"train_dataloader.batch_size {loader_cfg.get('batch_size')} does "
+                         f"not divide by the world size {world}")
+    try:
+        exp_path = _resolve_exp_path(trainer_cfg) if lead else None
+    except FileNotFoundError as e:
+        exp_path = e
+    exp_path = _on_every_rank(group, exp_path)  # one dated name for every rank
+    if lead:
+        os.makedirs(exp_path, exist_ok=True)
+        _archive_config(config, exp_path)
 
     train_ds = PairedWavDataset(**config["train_dataset"])
     valid_ds = PairedWavDataset(**config["valid_dataset"])
-    train_loader = PrefetchLoader(train_ds, **config.get("train_dataloader", {}))
+    train_loader = PrefetchLoader(train_ds, **loader_cfg)
     valid_loader = PrefetchLoader(valid_ds, shuffle=False, drop_last=False,
                                   **config.get("valid_dataloader", {}))
 
@@ -149,7 +202,8 @@ def run(config, *, device=None, max_steps: int | None = None) -> str:
                                   device=dev))
     optimizer = make_optimizer(model, sched_cfg, trainer_cfg.clip_grad_norm, device=dev)
     train_step = make_train_step(model, optimizer, loss_cfg, trainer_cfg,
-                                 compute_dtype=_DTYPES[trainer_cfg.precision], device=dev)
+                                 compute_dtype=_DTYPES[trainer_cfg.precision], device=dev,
+                                 group=group)
     eval_step = make_eval_step(model, loss_cfg, trainer_cfg, device=dev)
 
     ckpt = CheckpointManager(os.path.join(exp_path, "checkpoints"))
@@ -159,12 +213,16 @@ def run(config, *, device=None, max_steps: int | None = None) -> str:
         model.load_params(restored["params"])
         optimizer.load_state_dict(restored["opt_state"])
         start_epoch, step = int(restored["epoch"]) + 1, int(restored["step"])
-        print(f"resumed from step {step} (epoch {start_epoch - 1})")
+        if lead:
+            print(f"resumed from step {step} (epoch {start_epoch - 1})")
+    if group is not None:  # every rank starts from rank 0's bytes
+        replicate_multiprocess(list(model.state_dict().values()) + optimizer.mu + optimizer.nu,
+                               group)
 
     window = hann_window(trainer_cfg.win_len, device=dev)
     best = BestTracker(os.path.join(exp_path, "checkpoints"))
     fs = trainer_cfg.samplerate
-    writer = MetricWriter(os.path.join(exp_path, "logs"))
+    writer = MetricWriter(os.path.join(exp_path, "logs")) if lead else None
     try:
         for epoch in range(start_epoch, trainer_cfg.epochs + 1):
             # --- train ---
@@ -174,20 +232,26 @@ def run(config, *, device=None, max_steps: int | None = None) -> str:
             # the losses stay on the device between log points: reading one
             # waits for the device and stalls the queue of steps
             pending: list[torch.Tensor] = []
-            for noisy, clean in train_loader:
+            for batch in train_loader:
+                noisy, clean = shard_batch_multiprocess(batch, rank, world)
                 pending.append(train_step(noisy, clean))
                 n_batches += 1
                 step += 1
                 if step % trainer_cfg.log_every == 0:
                     total_loss += float(torch.stack(pending).sum())
                     pending.clear()
-                    # the rate after the increment, as the JAX package logs it
-                    writer.scalars(step, train_loss=total_loss / n_batches,
-                                   lr=warmup_cosine_lr(step, sched_cfg))
+                    if lead:  # the rate after the increment, as the JAX package logs it
+                        writer.scalars(step, train_loss=total_loss / n_batches,
+                                       lr=warmup_cosine_lr(step, sched_cfg))
                 if max_steps is not None and step >= max_steps:
                     break
             if pending:
                 total_loss += float(torch.stack(pending).sum())
+            stop = max_steps is not None and step >= max_steps
+            if not lead:  # validation, checkpoints and logs are rank 0's
+                if stop:
+                    break
+                continue
             train_loss = total_loss / max(n_batches, 1)
             print(f"epoch {epoch}: train_loss={train_loss:.3f} "
                   f"({n_batches} steps, {time.time() - t0:.0f}s)")
@@ -226,12 +290,16 @@ def run(config, *, device=None, max_steps: int | None = None) -> str:
                 ckpt.save(step, state)
             best.update(step, score, state)
 
-            if max_steps is not None and step >= max_steps:
+            if stop:
                 break
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         ckpt.close()
-    print(f"Training done. exp_path={exp_path} best_score={best.best_score:.4f}")
+    if group is not None:  # every rank returns once rank 0's checkpoints are written
+        dist.barrier(group)
+    if lead:
+        print(f"Training done. exp_path={exp_path} best_score={best.best_score:.4f}")
     return exp_path
 
 
@@ -242,8 +310,11 @@ def main(args=None) -> None:
     parser.add_argument("-C", "--config", default="configs/cfg_train_dns3.yaml")
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--device", default=None, help="default: cuda")
+    parser.add_argument("--distributed", action="store_true",
+                        help="one rank of the torchrun group (data parallel)")
     ns = parser.parse_args(args)
-    run(load_config(ns.config), device=ns.device, max_steps=ns.max_steps)
+    run(load_config(ns.config), device=ns.device, distributed=ns.distributed,
+        max_steps=ns.max_steps)
 
 
 if __name__ == "__main__":

@@ -41,11 +41,13 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gtcrn_micro_tpu_torch import resolve_device
 from gtcrn_micro_tpu_torch.dsp.stft import hann_window, stft
 from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, flatten, nest
 from gtcrn_micro_tpu_torch.nn.core import Ctx, exact_f32
+from gtcrn_micro_tpu_torch.parallel.mesh import RankMean
 from gtcrn_micro_tpu_torch.train.loss import HybridLossConfig, hybrid_loss
 from gtcrn_micro_tpu_torch.train.scheduler import WarmupCosineConfig, warmup_cosine_lr
 
@@ -235,15 +237,37 @@ def _spectra(noisy, clean, window, cfg: TrainerConfig, dev):
     return tuple(stft(x, window, cfg.n_fft, cfg.hop_len, cfg.win_len) for x in (noisy, clean))
 
 
+def _average_over_ranks(group, grads: list[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:
+    """DDP's reduction: every gradient and the loss replaced by their mean
+    over the ranks of ``group``, by one all-reduce of one flat buffer.
+    Returns the mean loss."""
+    world = dist.get_world_size(group)
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    parts = flat[:-1].split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [p.view_as(g) for p, g in zip(parts, grads)])
+    return flat[-1]
+
+
 def make_train_step(model: GTCRNMicro, optimizer: Adam,
                     loss_cfg: HybridLossConfig = HybridLossConfig(),
                     trainer_cfg: TrainerConfig = TrainerConfig(),
                     quantizer=None, freeze_bn: bool = False, compute_dtype=None,
-                    device=None) -> Callable:
+                    device=None, group=None) -> Callable:
     """Returns ``step(noisy, clean) -> loss``: one update of ``model`` and
     ``optimizer`` in place from a batch of noisy/clean audio (B, samples),
     float or int16, numpy or tensors.  The loss is a 0-d float32 tensor on
     the device (no wait for the device).
+
+    ``group``: a ``torch.distributed`` process group for data parallelism,
+    each rank stepping on its equal shard of the global batch: the
+    BatchNorms take the global batch's statistics (``parallel/mesh.RankMean``),
+    the gradients and the loss are averaged over the ranks by one all-reduce
+    after the backward and before the clip (DDP's semantics, written out so
+    that the bf16 ``functional_call`` path takes it too), and the statistics
+    folded are the global ones.  Each rank then takes the same update.
+    ``None``: one process, no collective.
 
     ``quantizer``: a ``ctx.quant`` hook (``quant.ptq.FakeQuantizer``) for
     quantization-aware training: fake-quant is a straight-through estimator,
@@ -258,6 +282,7 @@ def make_train_step(model: GTCRNMicro, optimizer: Adam,
     window = hann_window(trainer_cfg.win_len, device=dev)
     params = optimizer.params
     cpu_bf16 = dev.type == "cpu" and compute_dtype is not None
+    rank_mean = RankMean(group) if group is not None else None
 
     def forward(spec, ctx):
         if compute_dtype is None:
@@ -269,12 +294,14 @@ def make_train_step(model: GTCRNMicro, optimizer: Adam,
     def train_step(noisy, clean):
         with torch.enable_grad(), exact_f32(), _without_onednn(cpu_bf16):
             noisy_spec, clean_spec = _spectra(noisy, clean, window, trainer_cfg, dev)
-            ctx = Ctx(training=not freeze_bn, quant=quantizer)
+            ctx = Ctx(training=not freeze_bn, quant=quantizer, rank_mean=rank_mean)
             enhanced = forward(noisy_spec, ctx).float()  # the loss is always float32
             loss = hybrid_loss(enhanced, clean_spec, loss_cfg)
             for p in params:
                 p.grad = None
             loss.backward()
+        if group is not None:
+            loss = _average_over_ranks(group, [p.grad for p in params], loss)
         optimizer.step()
         apply_bn_stats(model, ctx.stats)  # nothing to fold under freeze_bn
         return loss.detach()

@@ -23,8 +23,10 @@ extern thread_local std::barrier<>* emu_cta_barrier;
 
 inline void __syncthreads() { emu_cta_barrier->arrive_and_wait(); }
 
-// declared for the host helpers of the header, which the emulation never calls
+// declared for the host helpers of the header; emu.cpp defines the two that
+// prepare() calls (cudaGetDevice, cudaFuncSetAttribute) to test it
 enum cudaError_t { cudaSuccess = 0 };
+cudaError_t cudaGetDevice(int*);
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes, sharedSizeBytes; };
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int);

@@ -70,3 +70,28 @@ extern "C" int host_fused_step_b1(int dtype, const float* W, const int* offs, in
   if (dtype == 0) go(0.f); else go(__nv_bfloat16());
   return 0;
 }
+
+// The runtime calls of prepare(): a current device, and a count per device
+// of the shared-memory attributes set.
+static int emu_device = 0;
+static int emu_attrs_set[8];
+
+cudaError_t cudaGetDevice(int* device) {
+  *device = emu_device;
+  return cudaSuccess;
+}
+
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
+  if (bytes == (int)SMEM_BYTES) ++emu_attrs_set[emu_device];
+  return cudaSuccess;
+}
+
+static void emu_kernel() {}
+
+// prepare() of one kernel with `device` current (0..7); returns how often
+// the attribute has been set on that device, or -1 if prepare() failed.
+extern "C" int host_prepare_on(int device) {
+  emu_device = device;
+  return prepare(emu_kernel) ? -1 : emu_attrs_set[device];
+}

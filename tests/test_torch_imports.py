@@ -35,6 +35,10 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _sources()
     assert len(files) > 10 and all(f.exists() for f in files)
+    port = ROOT / "gtcrn_micro_tpu_torch"
+    for module in ("parallel/mesh.py", "parallel/multiproc.py", "io/export_native.py",
+                   "runtime/native.py", "io/torch_ckpt.py"):
+        assert port / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -65,6 +69,12 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
         CohortServer(layered, None, batch=8, n_cohorts=1, dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         enhance_wavs(layered, [])
+    from gtcrn_micro_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CohortServer(None, params, batch=8, n_cohorts=1, mesh=["cuda:0", "cuda:0"])
     from gtcrn_micro_tpu_torch.ops.int8_step import Int8Serving
     from gtcrn_micro_tpu_torch.quant import parity, qat
 

@@ -6,8 +6,9 @@ tests/kernel_host/ (one std::thread per CUDA thread, a std::barrier per
 __syncthreads, a cp.async copy whose destination reads as NaN until the
 issuing thread's next wait, shared memory filled with NaN before each CTA),
 with the two C entries of kernels B1 and B2.  So the kernels' indexing,
-staging, barriers, ring contract and weight-layout checks are tested here
-without a GPU; what nvcc and the card add (their compiler, FMA contraction,
+staging, barriers, ring contract and weight-layout checks, and the
+per-device shared-memory attribute of prepare(), are tested here without a
+GPU; what nvcc and the card add (their compiler, FMA contraction,
 timing) is checked by tests/test_torch_kernels_cuda.py and chip_smoke.py.
 
 Tolerances are those of the card tests: f32 max-abs 1e-4 over 20 frames
@@ -165,3 +166,13 @@ def test_host_make_plan_refuses_bad_layout(host_lib, params, case):
 
     assert rc(list(kw.offsets), kw.buf.numel()) == 0
     assert rc(*_bad_layout(case, kw)) == 1
+
+
+def test_host_prepare_sets_the_attribute_once_per_device(host_lib):
+    """prepare() gives a kernel its dynamic shared memory once on each
+    device: CUDA keeps function attributes per device, so a kernel prepared
+    on device 0 is prepared again on device 1 (the second card of a sharded
+    server), and on neither twice."""
+    host_lib.host_prepare_on.restype = _I
+    host_lib.host_prepare_on.argtypes = [_I]
+    assert [host_lib.host_prepare_on(d) for d in (0, 0, 1, 1, 0, 3)] == [1] * 6

@@ -353,7 +353,7 @@ def test_layered_server_options(setup):
     srv = CohortServer(tm, None, batch=2, n_cohorts=2, dtype=torch.float32, mode="spec",
                        device="cpu", chunk_hops=16,
                        state_opts={"l2_psum": True, "store_dtype": FP8})
-    st = srv._states[1]
+    st = srv._states[1][0]  # the only shard
     assert len([k for k in st if k.endswith("psum_a")]) == 14
     assert all(v.dtype == FP8 for k, v in st.items() if k.endswith("/ring"))
     out = srv.step(1, torch.from_numpy(_spec((2, 257, 16, 2), 4)))
@@ -371,8 +371,8 @@ def test_layered_reset_slot_zeroes_axis_0(setup):
     for _ in range(2):
         srv.step(0, torch.from_numpy(rng.standard_normal((3, 1024)).astype(np.float32)))
     srv.reset_slot(0, 1)
-    d = srv._dsp[0]
-    tensors = [(k, v) for k, v in srv._states[0].items() if k != "step"]
+    d = srv._dsp[0][0]  # cohort 0, its only shard
+    tensors = [(k, v) for k, v in srv._states[0][0].items() if k != "step"]
     for k, v in tensors + [("in_buf", d.in_buf), ("ola_buf", d.ola_buf)]:
         assert v.shape[0] == 3, k
         assert float(v[1].abs().max()) == 0.0, k

@@ -136,7 +136,7 @@ def test_audio_server_bf16_matches_jax():
 
 
 def _ring_items(srv, cohort):
-    return [(k, v) for k, v in srv._states[cohort].items() if k != "step"]
+    return [(k, v) for k, v in srv._states[cohort][0].items() if k != "step"]
 
 
 def test_admission_lifecycle(params):
@@ -168,7 +168,7 @@ def test_reset_slot_zeroes_batch_column(params):
         assert float(v[..., 1].abs().max()) == 0.0, k
         assert float(v[..., 0].abs().max()) > 0.0, k
         assert float(v[..., 2].abs().max()) > 0.0, k
-    d = srv._dsp[0]
+    d = srv._dsp[0][0]
     for buf in (d.in_buf, d.ola_buf):
         assert float(buf[1].abs().max()) == 0.0
         assert float(buf[0].abs().max()) > 0.0 and float(buf[2].abs().max()) > 0.0
@@ -227,8 +227,8 @@ def test_plain_backend_serves_and_options_are_checked(params):
     _, tp = params
     srv = _server(tp, LayoutGTCRNMicro, batch=2, n_cohorts=1)
     assert srv.step(0, torch.zeros((2, 256))).shape == (2, 256)
-    with pytest.raises(NotImplementedError):
-        CohortServer(None, tp, batch=2, n_cohorts=1, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="does not divide"):
+        CohortServer(None, tp, batch=3, n_cohorts=1, mesh=["cpu", "cpu"])
     with pytest.raises(ValueError):
         CohortServer(None, tp, batch=2, n_cohorts=1, device="cpu", chunk_hops=2)
     with pytest.raises(ValueError):
