@@ -102,6 +102,29 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               the card (< 1e-5) and the card's int8 fake-quant ring step
               (< 5e-4 max(max|y|, 1)) over 20 frames.
 
+10. rounding -- the rest of quantization (``quant/adaround.py``, ``gptq.py``,
+              ``mixed.py``; no kernel of this repo) on phase 8's BN-folded
+              full-width params and int8 ranges: an augmented corpus of 64 +
+              8 clips of 4 s from five seeded 10 s wavs; one AdaRound step
+              card vs CPU port (loss, MSE, regulariser rel <= 1e-5; each
+              group's gradients within 1e-4 of its largest CPU float32
+              gradient, the float64 step's distance reported; bit-identical
+              with the TF32 flags on); the step at
+              8 x 4 s timed (CUDA events, ``utils.profiling``), profiled,
+              host syncs and peak memory; the card's bake against the CPU
+              port's bake of the same variables (equal but at float32
+              sigmoid ties, scales within 2 ulps); ``adaround_optimize`` 40 steps
+              (val every 20) + 20 ``bias_refine`` steps (int8 MSE after < 1.05
+              before, every scale re-observed bit-identical, on-grid to
+              1e-6); its GTM8 through ``NativeEngine(quant="int8")`` against
+              the card's fake-quant ring step (< 5e-4 max(max|y|, 1)); GPTQ
+              on 16 Hessian clips at a16 per-lane (59 patch checks, scales
+              bit-identical, local error below nearest's) and card vs CPU
+              codes on 2 x 257 x 33 (at most one quantum apart); the greedy
+              16/8 lift (max 2) on two 4 s wavs, its GTM8 v2 byte-identical
+              card vs CPU and through ``NativeEngine(quant="mixed")`` (<
+              5e-4 max(max|y|, 1)); ``model_complexity`` card = CPU.
+
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -803,7 +826,7 @@ def quant_phase(torch, dev, params, card) -> dict:
     if not ok:
         fail("quant: QAT did not train")
     say("quant", f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    res.update(act_qp=act_qp, folded=folded)
+    res.update(act_qp=act_qp, folded=folded, ranges=ranges)
     return res
 
 
@@ -1106,6 +1129,342 @@ def dist_phase(torch, dev, params, card, act_qp, folded, native_build) -> dict:
     return res
 
 
+def rounding_phase(torch, dev, card, quant, native_build) -> dict:
+    """Phase 10: AdaRound+LSQ, GPTQ and mixed 16/8 precision on the card
+    (``quant/adaround.py``, ``gptq.py``, ``mixed.py``; no kernel of this
+    repo) down to GTM8 artifacts that the native engine runs, and the
+    complexity counter.  ``quant`` is phase 8's result (BN-folded params on
+    the host, int8 activation params and their ranges)."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from gtcrn_micro_tpu_torch.dsp.stft import istft, sqrt_hann_window, stft
+    from gtcrn_micro_tpu_torch.io.export_native import export_native_weights_int8
+    from gtcrn_micro_tpu_torch.io.wav import read_wav, write_wav
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, flatten
+    from gtcrn_micro_tpu_torch.quant import adaround, gptq, mixed, qat
+    from gtcrn_micro_tpu_torch.quant.fake_quant import fake_quant, weight_qparams
+    from gtcrn_micro_tpu_torch.quant.ptq import QuantizedModel, observe_ranges, qparams_from_ranges
+    from gtcrn_micro_tpu_torch.runtime.native import NativeEngine
+    from gtcrn_micro_tpu_torch.utils import profiling
+    from gtcrn_micro_tpu_torch.utils.complexity import model_complexity
+    from gtcrn_micro_tpu_torch.utils.make_smoke_data import smoke_pair
+
+    t_phase = time.perf_counter()
+    res = {}
+    folded, act_qp, ranges = quant["folded"], quant["act_qp"], quant["ranges"]
+    fmodel = GTCRNMicro.from_params(folded, device=dev)
+    fmodel_cpu = GTCRNMicro.from_params(folded, device="cpu")
+    lib, _ = native_build.result()
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    def tree_flat(tree):
+        return {k.replace(".", "/"): v for k, v in flatten(tree).items()}
+
+    # -- the corpus: five seeded 10 s wavs, 64 train + 8 val clips of 4 s
+    # (the CLI's 384 + 48), a Hessian corpus of 16 clips (GPTQ's 96)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        rng = np.random.default_rng(15)
+        for i in range(1, 6):
+            clean, noisy_i = smoke_pair(rng, 10 * 16000)
+            write_wav(f"{d}/noisy{i}.wav", noisy_i, 16000)
+            write_wav(f"{d}/enh{i}.wav", clean, 16000)
+        t0 = time.perf_counter()
+        noisy, target, val_noisy, val_target = qat.build_augmented_corpus(
+            fmodel, d, train_ids=(1, 2, 3), val_ids=(4,), n_train=64, n_val=8)
+        hess = gptq.augmented_hessian_specs(fmodel, d, n_clips=16)
+        corpus_s = time.perf_counter() - t0
+        score_wavs = [read_wav(f"{d}/noisy{i}.wav")[0][: 4 * 16000] for i in (1, 2)]
+    say("rounding", f"corpus from 5 seeded 10 s wavs: {noisy.shape[0]} train + {val_noisy.shape[0]} "
+                    f"val clips of 4 s, Hessian specs {tuple(hess.shape)} ({corpus_s:.1f} s)")
+
+    # -- AdaRound parity: one step from the same variables and batch, card vs
+    # the CPU port (float32) and the CPU float64 step.  The variables are
+    # moved off the zero-error init, where each pinned weight's h(V) sits on
+    # the clip's bound and its (regulariser-only) gradient hangs on a tie
+    nb, tb = noisy[:2, : 2 * 16000], target[:2, : 2 * 16000]
+    run = adaround.AdaRound(fmodel, act_qp, reg_weight=2e-3)
+    prng = np.random.default_rng(16)
+    state = run.snapshot()
+    state["v"] = {k: v + torch.from_numpy(prng.standard_normal(v.shape).astype(np.float32)).to(dev)
+                  for k, v in state["v"].items()}
+    state["a"] = {k: torch.from_numpy(np.asarray(prng.standard_normal(v.shape) * 0.05, np.float32))
+                  for k, v in state["a"].items()}
+
+    def one_step(model, tf32=False):
+        r = adaround.AdaRound(model, act_qp, reg_weight=2e-3)
+        r.load(state)
+        saved = mm.allow_tf32, cudnn.allow_tf32, cudnn.deterministic
+        mm.allow_tf32 = cudnn.allow_tf32 = tf32
+        cudnn.deterministic = True
+        try:
+            loss, mse, reg, grads = r.gradients(nb, tb, 20.0)
+        finally:
+            mm.allow_tf32, cudnn.allow_tf32, cudnn.deterministic = saved
+        return [float(loss), float(mse), float(reg)], {
+            g: {k: t.detach().double().cpu() for k, t in gs.items()} for g, gs in grads.items()}
+
+    card_l, card_g = one_step(fmodel)
+    tf_l, tf_g = one_step(fmodel, tf32=True)
+    cpu_l, cpu_g = one_step(fmodel_cpu)
+    _, ref_g = one_step(GTCRNMicro.from_params(folded, dtype=torch.float64, device="cpu"))
+    rel = max(abs(a / b - 1) for a, b in zip(card_l, cpu_l))
+
+    def grad_err(gs, ref, g):  # worst leaf error over the group's largest reference gradient
+        top = max(float(t.abs().max()) for t in ref[g].values())
+        return max(float((gs[g][k] - t).abs().max()) for k, t in ref[g].items()) / top
+
+    # the bound holds the card to the CPU port's float32 step: against the
+    # float64 step both float32 steps carry the same tie flips of the
+    # quantized forward (a value within an ulp of a rounding tie rounds the
+    # other way in float64), reported
+    errs = {g: (grad_err(card_g, cpu_g, g), grad_err(card_g, ref_g, g), grad_err(cpu_g, ref_g, g))
+            for g in ("v", "a", "f")}
+    ok = rel <= 1e-5 and all(e[0] <= 1e-4 for e in errs.values())
+    same = tf_l == card_l and all(torch.equal(tf_g[g][k], card_g[g][k]) for g in card_g
+                                  for k in card_g[g])
+    res.update(adaround_step_rel=rel, adaround_grad_err=errs)
+    say("rounding", f"AdaRound step 2 x 2 s, card vs CPU port: loss, MSE, regulariser "
+                    f"{card_l[0]:.6g}, {card_l[1]:.6g}, {card_l[2]:.6g} (worst rel {rel:.2g}, bound "
+                    f"1e-5); gradients, worst leaf error over each group's largest CPU float32 "
+                    f"gradient: " + ", ".join(f"{g} {e[0]:.2g}" for g, e in errs.items())
+                    + " (bound 1e-4); against the CPU float64 step, card / CPU float32 (reported): "
+                    + ", ".join(f"{g} {e[1]:.2g} / {e[2]:.2g}" for g, e in errs.items())
+                    + f" {'ok' if ok else 'FAILED'}; with the global TF32 flags on "
+                    f"bit-identical {same} {'ok' if same else 'FAILED'}")
+    if not (ok and same):
+        fail("rounding: the AdaRound step on the card disagrees with the CPU port")
+
+    # -- AdaRound at the CLI's shape, batch 8 x 4 s: one step timed, profiled
+    timed = adaround.AdaRound(fmodel, act_qp, reg_weight=2e-3)
+    b8, t8 = noisy[:8], target[:8]
+    step_ms = profiling.time_fn(timed.step, b8, t8, 20.0, iters=10) * 1e3
+    prof = idle_share(torch, lambda i: timed.step(b8, t8, 20.0), n=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            timed.step(b8, t8, 20.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    res.update(adaround_step_ms=step_ms, adaround_syncs=syncs, adaround_peak_bytes=peak)
+    say("rounding", f"AdaRound step B=8 x 4 s: {step_ms:.2f} ms per step (CUDA events through "
+                    f"utils.profiling.time_fn, 10 steps), {syncs} host syncs per step, peak memory "
+                    f"{peak / 2**20:.0f} MiB above the {base / 2**30:.2f} GiB held; card {card}")
+    say("rounding", "AdaRound step: " + prof)
+
+    # the bake on the card against the CPU port's bake of the same variables:
+    # equal but where CUDA's and the CPU's float32 sigmoid put h(V) on the
+    # two sides of 0.5 (a tie), the learned scales within 2 ulps (exp)
+    cpu_run = adaround.AdaRound(fmodel_cpu, act_qp, reg_weight=2e-3)
+    cpu_run.load(timed.snapshot())
+    (b_card, q_card), (b_cpu, q_cpu) = timed.bake(), cpu_run.bake()
+    b_card, b_cpu = tree_flat(cpu(b_card)), tree_flat(b_cpu)
+    tmap = adaround.quantized_weight_tree_paths(fmodel_cpu, cpu_run.vars["v"])
+    n_diff, n_tie, n_off = 0, 0, 0
+    for spath, tpath in tmap.items():
+        diff = b_card[tpath] != b_cpu[tpath]
+        tie = ((adaround._h(timed.vars["v"][spath].detach()).cpu() >= 0.5)
+               != (adaround._h(cpu_run.vars["v"][spath].detach()) >= 0.5))
+        n_diff, n_tie = n_diff + int(diff.sum()), n_tie + int(tie.sum())
+        n_off += int((diff & ~tie).sum())
+    unpinned = sum(int((b_card[t] != b_cpu[t]).sum()) for t in b_card if t not in tmap.values())
+    s_rel = max(float(((q_card[p].scale.cpu() - q_cpu[p].scale).abs() / q_cpu[p].scale).max())
+                for p in q_cpu)
+    ok = n_off == 0 and unpinned == 0 and s_rel <= 2.4e-7
+    res.update(bake_codes_differ=n_diff, bake_ties=n_tie, bake_scale_rel=s_rel)
+    say("rounding", f"bake after {timed.count['v']} steps, card vs the CPU port's bake of the same "
+                    f"variables: {n_diff} of {sum(b.numel() for b in b_cpu.values())} values differ, "
+                    f"all where the two float32 sigmoids put h(V) on either side of 0.5 ({n_tie} "
+                    f"such; bound: no other), the float leaves equal {unpinned == 0}, learned scales "
+                    f"within {s_rel:.2g} relative (bound 2.4e-7: exp) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("rounding: the card's bake differs from the CPU port's beyond the float32 ties")
+    del timed, cpu_run, run
+
+    # the CLI's loop: 40 steps, hard-rounded val SNR every 20, 20 bias-refine steps
+    window = sqrt_hann_window(512, device=dev)
+
+    def int8_mse(params, qp):
+        """The int8 fake-quant model's audio MSE on the train clips."""
+        qm = QuantizedModel(GTCRNMicro.from_params(params, device=dev), qp)
+        err = 0.0
+        for i in range(0, len(noisy), 16):
+            with torch.no_grad():
+                y = istft(qm.apply(stft(torch.from_numpy(noisy[i : i + 16]).to(dev), window)),
+                          window, length=noisy.shape[1])
+            err += float((y.cpu() - torch.from_numpy(target[i : i + 16])).square().sum())
+        return err / target.size
+
+    before = int8_mse(folded, act_qp)
+    hist = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baked, baked_qp = adaround.adaround_optimize(
+        fmodel, noisy, target, act_qp, steps=40, batch_size=8, reg_weight=2e-3, log_every=0,
+        val_noisy=val_noisy, val_target=val_target, eval_every=20, history=hist)
+    art = adaround.bias_refine(GTCRNMicro.from_params(baked, device=dev), noisy, target,
+                               baked_qp, steps=20, log_every=0)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    after = int8_mse(art, baked_qp)
+    rvars, _, axes = adaround.init_rvars(fmodel, {p: q.to(dev) for p, q in act_qp.items()})
+    mapping = adaround.quantized_weight_tree_paths(fmodel, rvars)
+    old, new = tree_flat(folded), tree_flat(art)
+    scale_ok, worst_off, moved = True, 0.0, 0
+    for spath, tpath in mapping.items():
+        w = new[tpath]
+        qp_w = weight_qparams(w, axes[spath])
+        scale_ok = scale_ok and torch.equal(qp_w.scale.cpu(), weight_qparams(old[tpath], axes[spath]).scale)
+        worst_off = max(worst_off, float((fake_quant(w, qp_w) - w).abs().max() / w.abs().max()))
+        moved += int(not torch.equal(w.cpu(), old[tpath]))
+    zeros = all(torch.equal(baked_qp[p].zero.cpu(), q.zero) for p, q in act_qp.items())
+    ok = (after < before * 1.05 and scale_ok and worst_off <= 1e-6 and zeros
+          and all(math.isfinite(s) for _, s in hist))
+    res.update(adaround_loop_s=loop_s, adaround_mse=(before, after), adaround_val=hist)
+    say("rounding", f"adaround_optimize 40 steps B=8 x 4 s + bias_refine 20 steps: {loop_s:.1f} s; "
+                    f"val SNR (hard) {', '.join(f'{s:.2f} dB at {i}' for i, s in hist)}; int8 "
+                    f"fake-quant MSE on the 64 train clips {before:.4g} -> {after:.4g} (bound after "
+                    f"< 1.05 before); {moved} of {len(mapping)} weights moved, each weight's scale "
+                    f"re-observed bit-identical {scale_ok}, worst off-grid {worst_off:.2g} of max|w| "
+                    f"(bound 1e-6), zero points kept {zeros} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("rounding: the AdaRound artifact")
+
+    def native_check(path, quant_mode, params, qp):
+        eng = NativeEngine(path, lib_path=lib, quant=quant_mode)
+        qm = QuantizedModel(GTCRNMicro.from_params(params, device=dev), qp)
+        st = qm.init_state(1)
+        spec = torch.randn((1, 257, 20, 2), generator=torch.Generator().manual_seed(17)) * 0.3
+        err, mag = 0.0, 0.0
+        for t in range(20):
+            frame = spec[:, :, t : t + 1]
+            y = qm.step(None, st, frame.to(dev))[0].cpu().numpy()[0, :, 0]
+            err = max(err, float(np.abs(eng.step(frame[0, :, 0].numpy()) - y).max()))
+            mag = max(mag, float(np.abs(y).max()))
+        eng.close()
+        return err, mag
+
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        export_native_weights_int8(art, baked_qp, f"{d}/ada_card.gtm8")
+        export_native_weights_int8(cpu(art), {p: q.to("cpu") for p, q in baked_qp.items()},
+                                   f"{d}/ada_cpu.gtm8")
+        same = open(f"{d}/ada_card.gtm8", "rb").read() == open(f"{d}/ada_cpu.gtm8", "rb").read()
+        err, mag = native_check(f"{d}/ada_card.gtm8", "int8", art, baked_qp)
+    ok = same and err < 5e-4 * max(mag, 1.0)
+    res["native_adaround_max_abs"] = err
+    say("rounding", f"GTM8 of the AdaRound artifact from the card vs from its CPU copy: "
+                    f"byte-identical {same}; NativeEngine(quant='int8') on it vs the card's int8 "
+                    f"fake-quant ring step, 20 frames: max-abs {err:.3g} (bound 5e-4 x max(max|y| = "
+                    f"{mag:.3g}, 1)) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("rounding: the AdaRound GTM8 artifact")
+
+    # -- GPTQ on the card: a16 per-lane activations (tests/quant/test_gptq.py's grid)
+    qp16 = qparams_from_ranges(observe_ranges(fmodel, hess, batch_size=8, per_channel=True), 16,
+                               device=dev)
+    report = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_baked = gptq.gptq_params(fmodel, qp16, hess, report=report)
+    gptq_s = time.perf_counter() - t0
+    new = tree_flat(g_baked)
+    scale_ok, worst_off = True, 0.0
+    for spath, tpath in mapping.items():
+        w = new[tpath]
+        qp_w = weight_qparams(w, axes[spath])
+        scale_ok = scale_ok and torch.equal(qp_w.scale.cpu(), weight_qparams(old[tpath], axes[spath]).scale)
+        worst_off = max(worst_off, float((fake_quant(w, qp_w) - w).abs().max() / w.abs().max()))
+    err_g = sum(r["local_err"] for r in report)
+    err_n = sum(r["nearest_err"] for r in report)
+    flips = sum(r["flips"] for r in report)
+    secs = sorted(r["seconds"] for r in report)
+    ok = len(report) == 59 and scale_ok and worst_off <= 1e-6 and err_g < err_n
+    res.update(gptq_s=gptq_s, gptq_boundary_s=secs, gptq_local_err=(err_g, err_n), gptq_flips=flips)
+    say("rounding", f"gptq_params on the card, 16 Hessian clips x 4 s, a16 per-lane: {gptq_s:.1f} s, "
+                    f"per boundary median {statistics.median(secs):.3f} s, max {secs[-1]:.3f} s "
+                    f"({max(report, key=lambda r: r['seconds'])['path']}); 59 patch checks passed "
+                    f"{len(report) == 59}; {flips} of {sum(r['size'] for r in report)} codes flipped "
+                    f"against nearest; scales bit-identical {scale_ok}, worst off-grid "
+                    f"{worst_off:.2g} of max|w| (bound 1e-6); summed local error {err_g:.4g} vs "
+                    f"nearest {err_n:.4g} {'ok' if ok else 'FAILED'}; card {card}")
+    if not ok:
+        fail("rounding: GPTQ on the card")
+    # the JAX test's small spec: the card's bake against the CPU port's
+    small = np.asarray(np.random.default_rng(0).normal(size=(2, 257, 33, 2)) * 0.1, np.float32)
+    qp_small = qparams_from_ranges(observe_ranges(fmodel_cpu, small, batch_size=2, per_channel=True),
+                                   16)
+    bakes = [tree_flat(cpu(gptq.gptq_params(m, qp_small, small))) for m in (fmodel, fmodel_cpu)]
+    equal = total = far = 0
+    for spath, tpath in mapping.items():
+        scale = weight_qparams(old[tpath], axes[spath]).scale
+        c_card, c_cpu = (torch.round(b[tpath] / scale) for b in bakes)
+        equal += int((c_card == c_cpu).sum())
+        total += c_card.numel()
+        far += int(((c_card - c_cpu).abs() > 1).sum())
+    ok = far == 0
+    res["gptq_small_equal_share"] = equal / total
+    say("rounding", f"gptq_params on 2 x 257 x 33 specs, card vs CPU port: {equal} of {total} codes "
+                    f"equal ({equal / total:.2%}), {total - equal - far} one quantum apart, {far} "
+                    f"further {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("rounding: GPTQ on the card disagrees with the CPU port by more than a quantum")
+
+    # -- mixed precision: greedy lift on the AdaRound artifact, two 4 s wavs
+    score = mixed.make_wav_scorer(GTCRNMicro.from_params(art, device=dev), score_wavs, ranges,
+                                  baked_qp)
+    n_scores, t0 = [0], time.perf_counter()
+
+    def counted(lifted):
+        n_scores[0] += 1
+        return score(lifted)
+
+    lifted, _, trail = mixed.greedy_lift(counted, list(ranges), float("inf"), 2,
+                                             log=lambda s: None)
+    greedy_s = time.perf_counter() - t0
+    qp_mixed = mixed.compose_act_qp(ranges, lifted, baked_qp)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        export_native_weights_int8(art, qp_mixed, f"{d}/mixed_card.gtm8")
+        export_native_weights_int8(cpu(art), {p: q.to("cpu") for p, q in qp_mixed.items()},
+                                   f"{d}/mixed_cpu.gtm8")
+        same = open(f"{d}/mixed_card.gtm8", "rb").read() == open(f"{d}/mixed_cpu.gtm8", "rb").read()
+        err, mag = native_check(f"{d}/mixed_card.gtm8", "mixed", art, qp_mixed)
+    ok = len(trail) == 2 and same and err < 5e-4 * max(mag, 1.0)
+    res.update(greedy_s=greedy_s, greedy_scores=n_scores[0], greedy_trail=trail,
+               native_mixed_max_abs=err)
+    say("rounding", f"greedy_lift (max_lift 2) with make_wav_scorer on 2 wavs of 4 s: {n_scores[0]} "
+                    f"scores in {greedy_s:.1f} s ({greedy_s / n_scores[0] * 1e3:.1f} ms per score); "
+                    f"trail {', '.join(f'{p} {s:.2f} dB' for p, s in trail)}; GTM8 v2 card vs CPU "
+                    f"byte-identical {same}; NativeEngine(quant='mixed') vs the card's mixed "
+                    f"fake-quant ring step, 20 frames: max-abs {err:.3g} (bound 5e-4 x max(max|y| = "
+                    f"{mag:.3g}, 1)) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("rounding: the mixed GTM8 artifact")
+
+    # -- complexity on the card
+    n_params, n_macs = model_complexity(fmodel)
+    ok = (n_params, n_macs) == model_complexity(fmodel_cpu) and n_params == 19014
+    say("rounding", f"model_complexity on the card: {n_params} parameters, {n_macs} MACs per second "
+                    f"of audio, equal to the CPU port's {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("rounding: model_complexity")
+    say("rounding", f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
@@ -1403,6 +1762,9 @@ def main() -> None:
 
     # -- 9. dist + export ---------------------------------------------------
     dist_phase(torch, dev, params, card, quant["act_qp"], quant["folded"], native_build)
+
+    # -- 10. rounding: AdaRound, GPTQ, mixed precision -------------------------
+    rounding_phase(torch, dev, card, quant, native_build)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -31,8 +31,9 @@ INT16_MIN, INT16_MAX = -32768, 32767
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
     """``v`` as a float32 tensor on ``like``'s device (a divisor that the
-    CUDA kernels do not turn into a reciprocal)."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    CUDA kernels do not turn into a reciprocal), filled there: a tensor
+    copied from the host would wait for the device at every call."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -106,6 +106,23 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torc
     return torch._foreach_mul(grads, scale)
 
 
+@torch.no_grad()
+def adam_update_(params: list, grads: list, mu: list, nu: list, count: int, lr: float) -> int:
+    """One ``optax.adam(lr)`` update of ``params`` in place from ``grads``,
+    the moments ``mu``, ``nu`` updated in place; ``count`` is the number of
+    updates before this one.  Returns the new count."""
+    torch._foreach_mul_(mu, B1)
+    torch._foreach_add_(mu, grads, alpha=1 - B1)
+    torch._foreach_mul_(nu, B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - B2)
+    count += 1
+    mu_hat = torch._foreach_div(mu, 1 - B1 ** count)
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - B2 ** count))
+    torch._foreach_add_(denom, EPS)
+    torch._foreach_addcdiv_(params, mu_hat, denom, value=-lr)
+    return count
+
+
 class Adam:
     """Clip by global norm, then Adam with the learning rate of
     ``warmup_cosine_lr(count)`` (``count`` before the update), over the
@@ -128,15 +145,7 @@ class Adam:
     def step(self) -> None:
         grads = clip_by_global_norm([p.grad for p in self.params], self.clip_grad_norm)
         lr = warmup_cosine_lr(self.count, self.sched_cfg)
-        torch._foreach_mul_(self.mu, B1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - B1)
-        torch._foreach_mul_(self.nu, B2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - B2)
-        self.count += 1
-        mu_hat = torch._foreach_div(self.mu, 1 - B1 ** self.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1 - B2 ** self.count))
-        torch._foreach_add_(denom, EPS)
-        torch._foreach_addcdiv_(self.params, mu_hat, denom, value=-lr)
+        self.count = adam_update_(self.params, grads, self.mu, self.nu, self.count, lr)
 
     def state_dict(self) -> dict:
         """``{"count": int, "mu": nested, "nu": nested}``, CPU copies."""

@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10 and all(f.exists() for f in files)
     port = ROOT / "gtcrn_micro_tpu_torch"
     for module in ("parallel/mesh.py", "parallel/multiproc.py", "io/export_native.py",
-                   "runtime/native.py", "io/torch_ckpt.py"):
+                   "runtime/native.py", "io/torch_ckpt.py", "quant/adaround.py", "quant/gptq.py",
+                   "quant/mixed.py", "utils/profiling.py", "utils/complexity.py"):
         assert port / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -76,14 +77,18 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CohortServer(None, params, batch=8, n_cohorts=1, mesh=["cuda:0", "cuda:0"])
     from gtcrn_micro_tpu_torch.ops.int8_step import Int8Serving
-    from gtcrn_micro_tpu_torch.quant import parity, qat
+    from gtcrn_micro_tpu_torch.quant import adaround, mixed, parity, qat
+    from gtcrn_micro_tpu_torch.utils import profiling
 
     opt = make_optimizer(layered, device="cpu")
     files = ["--checkpoint", "x.npz", "--wav_dir", "d", "--wav", "x.wav", "--calib_dir", "d"]
     for call in (lambda: make_optimizer(layered), lambda: make_train_step(layered, opt),
                  lambda: make_eval_step(layered), lambda: train_run({}),
                  lambda: infer_main(["-C", "cfg.yaml"]), lambda: Int8Serving(params, {}),
-                 lambda: parity.main(files[:2] + files[4:]), lambda: qat.main(files[:4])):
+                 lambda: parity.main(files[:2] + files[4:]), lambda: qat.main(files[:4]),
+                 lambda: adaround.main(files[:4]), lambda: mixed.main(files[:4]),
+                 lambda: adaround.load_act_qp("act_qp.npz"), lambda: mixed.qp_table({}),
+                 lambda: profiling.time_fn(lambda: None), profiling.measure_rtt):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
