@@ -12,6 +12,8 @@ Windows are computed in float32 numpy exactly as the JAX package's
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -25,6 +27,23 @@ def _hann_np(win_length: int) -> np.ndarray:
         np.float32(1.0) - np.cos(np.float32(2.0 * np.pi) * n / np.float32(win_length))
     )
     return w.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class StftConfig:
+    """STFT geometry of the reference model: 512/256/512 @ 16 kHz."""
+
+    n_fft: int = 512
+    hop_len: int = 256
+    win_len: int = 512
+    fs: int = 16000
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
+
+    def num_frames(self, num_samples: int) -> int:
+        return num_samples // self.hop_len + 1
 
 
 def hann_window(win_length: int, dtype=torch.float32, device=None) -> torch.Tensor:

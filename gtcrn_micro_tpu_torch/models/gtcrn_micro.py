@@ -286,7 +286,9 @@ class GTCRNMicro(nn.Module):
         model's by default).
 
         ``ring=True``: ring caches plus the integer ``step`` counter (T of
-        every step a power of two <= 16, the same for the state's life).
+        every step a power of two <= 16, the same for the state's life); a
+        0-d int64 tensor in its place also works, and is what an exported
+        program carries (``io/export_program.py``).
         ``ring=False``: shift caches, any chunk size.  ``l2_psum`` (ring
         only): the 14 L == 2 convs carry their partial-output pairs
         ``psum_a``/``psum_b``.  ``store_dtype`` (ring only): the rings are

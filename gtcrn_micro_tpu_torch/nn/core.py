@@ -214,11 +214,22 @@ def _window(ctx: Ctx, cache, x, d: int, taps: int):
     ``(t + j d) mod L``, and ``xin = [slab_0 | ... | x]`` with dilation T;
     the chunk overwrites the oldest slab (slot ``t mod L``).  The step
     counter starts at 0 and advances by T, so every slab is T-aligned and
-    never wraps.  Shift cache, or ring with ``d < T``: ``xin = [cache | x]``
-    in time order with dilation d, and the cache keeps its last L frames.
+    never wraps.  The counter is a Python int, or a 0-d int64 tensor in an
+    exported program (``torch.export`` would bake an int in as a constant).
+    Shift cache, or ring with ``d < T``: ``xin = [cache | x]`` in time order
+    with dilation d, and the cache keeps its last L frames.
     Rings stored narrower than ``x`` are cast on read and on write.
     """
     T, L = x.shape[1], cache.shape[1]
+    if ctx.ring and d >= T and torch.is_tensor(ctx.step):
+        # the counter as a tensor (an exported program's state,
+        # io/export_program.py): the same slabs, read and written by index
+        ar = torch.arange(T, device=cache.device)
+        slabs = [cache.index_select(1, (ctx.step + j * d) % L + ar).to(x.dtype)
+                 for j in range(taps)]
+        xin = torch.cat(slabs + [x], dim=1)
+        cache.index_copy_(1, ctx.step % L + ar, x.to(cache.dtype))
+        return xin, T
     if ctx.ring and d >= T:
         t = ctx.step
         slabs = [cache[:, (t + j * d) % L : (t + j * d) % L + T].to(x.dtype)

@@ -29,10 +29,9 @@ one process per GPU instead.  Per epoch:
 - metrics to ``logs/metrics.jsonl`` (and TensorBoard where tensorboardX
   imports).
 
-``run`` takes a ``Config`` or a plain dict and never needs PyYAML: it keeps
-the resolved config as ``config.yaml`` where PyYAML imports and as
-``config.json`` where it does not.  Only ``main`` needs PyYAML, to read
-``-C``.
+``run`` takes a ``Config`` or a plain dict and keeps the resolved config as
+``config.yaml``; neither it nor ``main`` (``-C``) needs PyYAML
+(``utils/config.py`` reads and writes the configs' YAML).
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ from __future__ import annotations
 import argparse
 import functools
 import glob
-import json
 import os
 import time
 from datetime import datetime
@@ -69,7 +67,7 @@ from gtcrn_micro_tpu_torch.train.trainer import (
     make_train_step,
 )
 from gtcrn_micro_tpu_torch.utils.checkpoint import BestTracker, CheckpointManager
-from gtcrn_micro_tpu_torch.utils.config import _wrap
+from gtcrn_micro_tpu_torch.utils.config import _wrap, save_config
 from gtcrn_micro_tpu_torch.utils.logging import MetricWriter
 
 _DTYPES = {"fp32": None, "bf16": torch.bfloat16}
@@ -118,16 +116,9 @@ def _resolve_exp_path(cfg: TrainerConfig) -> str:
 
 
 def _archive_config(config, exp_path: str) -> None:
-    """The resolved config as ``config.yaml``, or ``config.json`` without
-    PyYAML (the reference snapshots config and code, train.py:172-186)."""
-    try:
-        import yaml
-    except ImportError:
-        with open(os.path.join(exp_path, "config.json"), "w") as f:
-            json.dump(config.to_dict(), f, indent=1)
-        return
-    with open(os.path.join(exp_path, "config.yaml"), "w") as f:
-        yaml.safe_dump(config.to_dict(), f)
+    """The resolved config as ``config.yaml`` (the reference snapshots
+    config and code, train.py:172-186)."""
+    save_config(config.to_dict(), os.path.join(exp_path, "config.yaml"))
 
 
 def _on_every_rank(group, value):

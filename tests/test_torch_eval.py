@@ -91,10 +91,6 @@ def test_intrusive_writes_the_jax_files(tmp_path):
                for ln in (tout / "RESULTS.txt").read_text().splitlines()[:4])
 
 
-def test_evaluate_dnsmos_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate.main(["--metric", "dnsmos"])
-
 
 def test_infer_main_loads_a_checkpoint_directory(tmp_path):
     """network.checkpoint may name a CheckpointManager directory: its latest

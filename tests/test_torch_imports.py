@@ -6,6 +6,7 @@ test process imports both packages, and a host may pre-import jax.
 """
 
 import ast
+import os
 from pathlib import Path
 
 import pytest
@@ -38,7 +39,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     port = ROOT / "gtcrn_micro_tpu_torch"
     for module in ("parallel/mesh.py", "parallel/multiproc.py", "io/export_native.py",
                    "runtime/native.py", "io/torch_ckpt.py", "quant/adaround.py", "quant/gptq.py",
-                   "quant/mixed.py", "utils/profiling.py", "utils/complexity.py"):
+                   "quant/mixed.py", "utils/profiling.py", "utils/complexity.py", "io/onnx.py",
+                   "io/onnx_export.py", "io/export_program.py", "eval/dnsmos.py",
+                   "utils/config.py"):
         assert port / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -76,6 +79,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
         make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CohortServer(None, params, batch=8, n_cohorts=1, mesh=["cuda:0", "cuda:0"])
+    from gtcrn_micro_tpu_torch.eval import dnsmos
+    from gtcrn_micro_tpu_torch.eval.dnsmos import DEFAULT_MODEL_DIR, DnsmosScorer
+    from gtcrn_micro_tpu_torch.io import export_program
+    from gtcrn_micro_tpu_torch.io.onnx import OnnxModel
     from gtcrn_micro_tpu_torch.ops.int8_step import Int8Serving
     from gtcrn_micro_tpu_torch.quant import adaround, mixed, parity, qat
     from gtcrn_micro_tpu_torch.utils import profiling
@@ -88,7 +95,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
                  lambda: parity.main(files[:2] + files[4:]), lambda: qat.main(files[:4]),
                  lambda: adaround.main(files[:4]), lambda: mixed.main(files[:4]),
                  lambda: adaround.load_act_qp("act_qp.npz"), lambda: mixed.qp_table({}),
-                 lambda: profiling.time_fn(lambda: None), profiling.measure_rtt):
+                 lambda: profiling.time_fn(lambda: None), profiling.measure_rtt,
+                 lambda: OnnxModel(os.path.join(DEFAULT_MODEL_DIR, "model_v8.onnx")),
+                 lambda: DnsmosScorer(), lambda: dnsmos.main(["--inf_scp", "x", "--output_dir", "o"]),
+                 lambda: export_program.main(["--checkpoint", "x.npz"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"

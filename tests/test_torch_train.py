@@ -59,6 +59,7 @@ from gtcrn_micro_tpu_torch.train.trainer import (
     opt_state_from_jax,
 )
 from gtcrn_micro_tpu_torch.utils.checkpoint import BestTracker, CheckpointManager
+from gtcrn_micro_tpu_torch.utils.config import load_config
 from gtcrn_micro_tpu_torch.utils.make_smoke_data import make_smoke_data
 
 SCHED = dict(warmup_steps=5, decay_until_step=100, max_lr=1e-3)
@@ -463,7 +464,7 @@ def test_run_val_loss_independent_of_scorer_failures(smoke_root, tmp_path, monke
 def test_run_resume_counts_epochs_in_total(smoke_root, tmp_path, monkeypatch):
     """Two epochs, then ``resume: true`` with 3 epochs in all: one more
     epoch from the saved step, in the newest dated run; the config kept as
-    JSON where PyYAML does not import."""
+    ``config.yaml`` where PyYAML does not import, loading back equal."""
     monkeypatch.setattr(train_mod, "quality_score", lambda c, e, fs: 1.0)
     prefix = str(tmp_path / "exp")
     with pytest.raises(FileNotFoundError):
@@ -471,8 +472,10 @@ def test_run_resume_counts_epochs_in_total(smoke_root, tmp_path, monkeypatch):
     with monkeypatch.context() as m:
         m.setitem(sys.modules, "yaml", None)  # import yaml raises ImportError
         exp = train_mod.run(_run_cfg(smoke_root, prefix, epochs=2), device="cpu")
-    assert os.path.exists(os.path.join(exp, "config.json"))
-    assert json.load(open(os.path.join(exp, "config.json")))["trainer"]["epochs"] == 2
+        archived = load_config(os.path.join(exp, "config.yaml")).to_dict()
+    assert not os.path.exists(os.path.join(exp, "config.json"))
+    want = _run_cfg(smoke_root, prefix, epochs=2)
+    assert archived == want and archived["trainer"]["epochs"] == 2
     assert train_mod.run(_run_cfg(smoke_root, prefix, epochs=3, resume=True), device="cpu") == exp
     assert os.path.exists(os.path.join(exp, "config.yaml"))
     val = [m for m in _metrics(exp) if "val_loss" in m]
