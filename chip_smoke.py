@@ -144,6 +144,21 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               ring wrap) against ``CohortServer`` on kernel B2 in f32 and the
               layered server (SNR >= 80 dB), its ms per step against the
               layered server's, and its idle share.
+12. bench  -- the measuring entry points (``gtcrn_micro_tpu_torch/bench.py``,
+              ``scripts/``; kernel B2, and B1 through the roofline):
+              ``python -m gtcrn_micro_tpu_torch.bench --budget 45`` in its
+              own process (one JSON line with concurrent_realtime_streams >
+              0, its verified (B, K) meeting K * step <= 16 ms and step +
+              16/K <= 10 ms with the round-robin step it printed, B2
+              launched); ``serve_soak`` at that plan, 5 s paced after 2 s of
+              warm-up with admissions every 0.5 s (every output finite, each
+              released slot dirty and each readmitted slot zero, one B2
+              launch per step; p50/p99 latency and overruns reported, not
+              enforced); ``bench_int8`` at 4,096 and 32,768 streams, chain
+              20; ``train_speed`` at 8 x 10 s, f32 and bf16, chain 4;
+              ``roofline`` at 8,192 on B2 (bandwidth measured) and B1.  The
+              kernels JSON line gives each kernel's launches in phase 12
+              (``bench_launches``, which must not be 0).
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -160,9 +175,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_F32_FLOPS = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
-H100_HBM_BYTES = 3.35e12
-H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, H100 SXM data sheet
 
 
 def fail(msg: str) -> None:
@@ -200,108 +212,6 @@ def cuda_ms(torch, fn, n=20, warm=3, reps=1) -> float:
     return statistics.median(times)
 
 
-def device_events(torch, fn, n):
-    """The device operations of ``n`` back-to-back calls ``fn(i)``
-    (torch.profiler), by start time, and the host wall clock (us) over
-    them."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    return evs, wall_us
-
-
-def idle_share(torch, fn, n=10, top=5) -> str:
-    """Device busy time, device operations and the device's idle share of
-    the host wall clock per call, over ``n`` back-to-back calls, and the
-    ``top`` device operations by their device time per call."""
-    evs, wall_us = device_events(torch, fn, n)
-    busy = sum(e.time_range.elapsed_us() for e in evs)
-    if busy == 0:
-        return "torch.profiler recorded no device time: idle share not measured"
-    by_name: dict[str, list] = {}
-    for e in evs:
-        acc = by_name.setdefault(e.name[:48], [0, 0.0])
-        acc[0] += 1
-        acc[1] += e.time_range.elapsed_us()
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    tops = "; ".join(f"{name} x{c / n:.0f} {us / n / 1e3:.3f} ms" for name, (c, us) in ranked)
-    return (f"device busy {busy / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms wall per step, "
-            f"{len(evs) / n:.0f} device operations per step, idle share "
-            f"{1 - busy / wall_us:.1%} (torch.profiler, {n} steps, host clock, profiler on); "
-            f"top by device time per step: {tops}")
-
-
-def profile_split(torch, srv, chunk, K, n=10) -> str:
-    """Device time per served step by kernel group (torch.profiler), and the
-    device's idle share of the host wall clock over ``n`` back-to-back
-    steps."""
-    evs, wall_us = device_events(torch, lambda i: srv.step(i % K, chunk), n)
-    glue = "glue (cat, copies, casts, OLA add)"
-    groups = {"STFT GEMM": 0.0, "kernel": 0.0, "iSTFT GEMM": 0.0, glue: 0.0}
-    # between two fused kernels the GEMM launches come in two runs split by
-    # glue: the iSTFT of one step, then the STFT of the next (a GEMM may take
-    # more than one launch); before the first kernel there is only an STFT
-    run, prev_gemm = 0, False
-    for e in evs:
-        is_gemm = "gemm" in e.name.lower()
-        if "fused_" in e.name:
-            g, run = "kernel", -1
-        elif is_gemm:
-            run += not prev_gemm
-            g = "iSTFT GEMM" if run == 0 else "STFT GEMM"
-        else:
-            g = glue
-        prev_gemm = is_gemm
-        groups[g] += e.time_range.elapsed_us()
-    busy = sum(groups.values())
-    if busy == 0:
-        return "torch.profiler recorded no device time: split not measured"
-    parts = ", ".join(f"{k} {v / n / 1e3:.3f} ms" for k, v in groups.items())
-    return (f"device time per step (torch.profiler, {n} steps): {parts}; busy "
-            f"{busy / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms wall, idle share "
-            f"{1 - busy / wall_us:.1%} (host clock, profiler on)")
-
-
-def work_per_stream(RING_DEFS, W):
-    """Per stream and frame: the multiply-adds the fused forward needs, and
-    the ring values it reads and writes.  The fixed ERB merge and split count
-    by the nonzeros of their matrices in the unpacked weights ``W``; the
-    padding of the frequency convs and the zeros stuffed into the transposed
-    convs count nothing."""
-    def taps_stride2(fin, fout):  # k in 0..4 with 0 <= 2 fo + k - 2 < fin
-        return sum(1 for fo in range(fout) for k in range(5) if 0 <= 2 * fo + k - 2 < fin)
-
-    def taps_up2(fin):  # zero-stuffed input of length 2 fin - 1
-        return sum(1 for fo in range(2 * fin - 1) for k in range(5)
-                   if 0 <= fo + k - 2 <= 2 * fin - 2 and (fo + k - 2) % 2 == 0)
-
-    f3 = sum(1 for f in range(33) for kf in range(3) if 0 <= f + kf - 1 < 33)  # 97
-    gt_common = 33 * 16 * 8 * 2 + 8 * 33 + 8 * 3 + 8 * 8  # pw1, pw2, energy, TRA
-    nnz = lambda w: int((w != 0).sum())  # noqa: E731
-    macs = (2 * 257                           # mag: re^2 + im^2
-            + 3 * nnz(W["bm_w"])              # ERB merge (mag, re, im)
-            + 3 * (3 * 129 - 2)               # SFE: depthwise 3-tap over 3 channels
-            + taps_stride2(129, 65) * 16 * 3  # en0
-            + taps_stride2(65, 33) * 16 * 16  # en1
-            + 3 * (gt_common + 3 * f3 * 16)   # encoder GTConv, depthwise 3x3
-            + 8 * (2 * 33 * 16 * 16 + 3 * 16 * 33)  # TCNs
-            + 3 * (gt_common + 3 * f3 * 16 * 16)    # decoder GTConv, full 3x3
-            + taps_up2(33) * 16 * 16          # de3
-            + taps_up2(65) * 2 * 16           # de4
-            + 2 * nnz(W["bs_w"])              # ERB split (real, imag)
-            + 4 * 257)                        # complex mask
-    frame = sum(math.prod(shape) for _n, _L, _d, shape in RING_DEFS)
-    return macs, 2 * frame, frame
-
-
 def layered_phase(torch, dev, params, spec, card) -> dict:
     """Phase 6: the layered model against kernel B2 and against itself, its
     bf16 cohort server, and the offline enhancement entry point.  Returns
@@ -315,6 +225,7 @@ def layered_phase(torch, dev, params, spec, card) -> dict:
     from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro
     from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
     from gtcrn_micro_tpu_torch.serve import CohortServer
+    from gtcrn_micro_tpu_torch.utils.profiling import idle_share
 
     f32, bf16 = torch.float32, torch.bfloat16
     model = GTCRNMicro.from_params(params, dtype=f32, device=dev)
@@ -405,7 +316,7 @@ def layered_phase(torch, dev, params, spec, card) -> dict:
         res[f"served_step_ms_T{Tc}"] = step_ms
         say("layered", f"served step B={BS} bf16 chunk_hops={Tc} (CUDA events, median of 20): "
                        f"{step_ms:.3f} ms per step, {step_ms / Tc:.3f} ms per hop; card {card}")
-        say("layered", f"chunk_hops={Tc}: " + idle_share(torch, lambda i: srv.step(i % K, chunk)))
+        say("layered", f"chunk_hops={Tc}: " + idle_share(lambda i: srv.step(i % K, chunk)))
         del srv
     del mb
 
@@ -480,6 +391,7 @@ def train_phase(torch, dev, params, card) -> str:
     from gtcrn_micro_tpu_torch.train.trainer import make_optimizer, make_train_step
     from gtcrn_micro_tpu_torch.utils.checkpoint import CheckpointManager
     from gtcrn_micro_tpu_torch.utils.make_smoke_data import make_smoke_data, smoke_pair
+    from gtcrn_micro_tpu_torch.utils.profiling import idle_share
 
     t_phase = time.perf_counter()
     sched = WarmupCosineConfig(warmup_steps=5, decay_until_step=100, max_lr=1e-3)
@@ -593,7 +505,7 @@ def train_phase(torch, dev, params, card) -> str:
                 torch.cuda.set_sync_debug_mode(0)
         syncs = sum("synchroniz" in str(w.message) for w in caught)
         ms = cuda_ms(torch, run_step, n=20, warm=1)
-        prof = idle_share(torch, lambda i: run_step(), n=5)
+        prof = idle_share(lambda i: run_step(), n=5)
         while len(losses) < 30:
             run_step()
         peak = torch.cuda.max_memory_allocated() - base
@@ -696,6 +608,8 @@ def quant_phase(torch, dev, params, card) -> dict:
     from gtcrn_micro_tpu_torch.quant import qat
     from gtcrn_micro_tpu_torch.quant.ptq import QuantizedModel, observe_ranges, qparams_from_ranges
     from gtcrn_micro_tpu_torch.utils.make_smoke_data import smoke_pair
+    from gtcrn_micro_tpu_torch.utils.profiling import idle_share
+    from gtcrn_micro_tpu_torch.utils.roofline import H100_INT8_OPS, bound_ms
 
     t_phase = time.perf_counter()
     res = {}
@@ -819,13 +733,12 @@ def quant_phase(torch, dev, params, card) -> dict:
                      f"{nbytes / 2**20:.1f} MiB = {nbytes / B:.0f} B per stream, the layered bf16 "
                      f"state {layered_bytes * B / 2**20:.1f} MiB ({layered_bytes} B per stream); "
                      f"card {card}")
-        say("quant", f"B={B}: " + idle_share(torch, lambda i: serving.step(st, spec), n=5))
+        say("quant", f"B={B}: " + idle_share(lambda i: serving.step(st, spec), n=5))
         qa = torch.randint(-128, 128, (B * 33, 80), dtype=torch.int8, device=dev)
         mm_ms = cuda_ms(torch, lambda: torch._int_mm(qa, m["w"]), n=10, reps=10)
         mm_bytes = qa.numel() + m["w"].numel() + 4 * B * 33 * 16
         mm_ops = 2 * B * 33 * 80 * 16
-        mm_bound = max(mm_bytes / H100_HBM_BYTES, mm_ops / H100_INT8_OPS) * 1e3
-        by = "bytes" if mm_bytes / H100_HBM_BYTES >= mm_ops / H100_INT8_OPS else "operations"
+        mm_bound, by = bound_ms(mm_bytes, mm_ops, H100_INT8_OPS)
         res[f"int_mm_en1_ms_B{B}"] = mm_ms
         say("quant", f"B={B}: torch._int_mm of en1 (the step's largest contraction, M={B * 33}, "
                      f"K=80, N=16): {mm_ms:.4f} ms, bound {mm_bound:.4f} ms by {by} "
@@ -965,6 +878,7 @@ def dist_phase(torch, dev, params, card, act_qp, folded, native_build) -> dict:
     from gtcrn_micro_tpu_torch.train.scheduler import WarmupCosineConfig
     from gtcrn_micro_tpu_torch.train.trainer import make_optimizer, make_train_step
     from gtcrn_micro_tpu_torch.utils.make_smoke_data import smoke_pair
+    from gtcrn_micro_tpu_torch.utils.profiling import idle_share
 
     t_phase = time.perf_counter()
     res = {}
@@ -1027,7 +941,7 @@ def dist_phase(torch, dev, params, card, act_qp, folded, native_build) -> dict:
                     f"{times['plain'][1]:.2f} ms, one-rank NCCL group {times['group'][0]:.2f} / "
                     f"{times['group'][1]:.2f} ms; host syncs per step {syncs}; card {card}")
         for name in ("plain", "group"):
-            say("dist", f"{name}: " + idle_share(torch, lambda i: steps[name](*big), n=5))
+            say("dist", f"{name}: " + idle_share(lambda i: steps[name](*big), n=5))
         # one bare all-reduce of a BatchNorm's 16 statistics, as the step issues it
         x = torch.zeros(16, device=dev)
         host_us = []
@@ -1178,6 +1092,7 @@ def rounding_phase(torch, dev, card, quant, native_build) -> dict:
     from gtcrn_micro_tpu_torch.runtime.native import NativeEngine
     from gtcrn_micro_tpu_torch.utils import profiling
     from gtcrn_micro_tpu_torch.utils.complexity import model_complexity
+    from gtcrn_micro_tpu_torch.utils.profiling import idle_share
     from gtcrn_micro_tpu_torch.utils.make_smoke_data import smoke_pair
 
     t_phase = time.perf_counter()
@@ -1274,7 +1189,7 @@ def rounding_phase(torch, dev, card, quant, native_build) -> dict:
     timed = adaround.AdaRound(fmodel, act_qp, reg_weight=2e-3)
     b8, t8 = noisy[:8], target[:8]
     step_ms = profiling.time_fn(timed.step, b8, t8, 20.0, iters=10) * 1e3
-    prof = idle_share(torch, lambda i: timed.step(b8, t8, 20.0), n=5)
+    prof = idle_share(lambda i: timed.step(b8, t8, 20.0), n=5)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1511,6 +1426,8 @@ def export_phase(torch, dev, params, card, enhanced: str) -> None:
     from gtcrn_micro_tpu_torch.io.onnx import OnnxModel
     from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, flatten
     from gtcrn_micro_tpu_torch.serve import CohortServer
+    from gtcrn_micro_tpu_torch.utils.profiling import idle_share
+    from gtcrn_micro_tpu_torch.utils.roofline import H100_F32_FLOPS
 
     t_phase = time.perf_counter()
     f32 = torch.float32
@@ -1579,7 +1496,7 @@ def export_phase(torch, dev, params, card, enhanced: str) -> None:
                   f"67 TFLOP/s f32, no TF32); the log-mel on the host {mel_ms:.2f} ms per segment "
                   f"(host clock)")
     say("export", "DnsmosScorer per 12 s clip: "
-                  + idle_share(torch, lambda i: scorer(clips[i % len(clips)]), n=8))
+                  + idle_share(lambda i: scorer(clips[i % len(clips)]), n=8))
 
     # -- evaluate -C <YAML written here> --metric dnsmos on phase 7's enhanced wavs
     cfg = work / "cfg_infer.yaml"
@@ -1718,11 +1635,134 @@ def export_phase(torch, dev, params, card, enhanced: str) -> None:
             fail(f"export: the exported audio program T={T}")
         if T == 1:
             say("export", "exported audio program T=1, B=64: "
-                          + idle_share(torch, lambda i: prog(*carry, chunk), n=10))
+                          + idle_share(lambda i: prog(*carry, chunk), n=10))
     del b2
     shutil.rmtree(work)
     shutil.rmtree(Path(enhanced).parent)
     say("export", f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def bench_phase(card) -> dict:
+    """Phase 12: the port's measuring entry points on the card
+    (``gtcrn_micro_tpu_torch/bench.py``, ``scripts/``), each cut to fit the
+    run.  Returns the launches of each kernel they counted."""
+    import contextlib
+    import io
+
+    from gtcrn_micro_tpu_torch.scripts import bench_int8, roofline, serve_soak, train_speed
+
+    t_phase = time.perf_counter()
+    launches = {"fused_grid_b2": 0, "fused_step_b1": 0}
+    say("bench", "cuts against the JAX defaults: bench --budget 45 (420); soak 5 s after 2 s of "
+                 "warm-up (30 after 20), admissions every 0.5 s (2); bench_int8 at 4,096 and "
+                 "32,768 with a chain of 20 (4 batches, 200); train_speed 8 x 10 s with a chain "
+                 "of 4 (16 and 64 x 8 s, 12); roofline at 8,192 as in JAX, then B1 with the "
+                 "bandwidth reused")
+
+    def run(label, main, argv, echo=True):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = main(argv)
+        if echo:
+            for ln in buf.getvalue().splitlines():
+                if ln.strip():
+                    print(f"[bench]   {label}: {ln}", flush=True)
+        return res, time.perf_counter() - t0
+
+    # -- the headline bench, as its users run it, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gtcrn_micro_tpu_torch.bench", "--budget", "45"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    bench_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        print(f"[bench]   bench: {ln}", flush=True)
+    if proc.returncode:
+        fail(f"bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    payloads = [ln for ln in lines if ln.startswith("{")]
+    verified = [json.loads(ln[len("# verified: "):]) for ln in lines if ln.startswith("# verified: ")]
+    if len(payloads) != 1 or len(verified) != 1:
+        fail(f"bench printed {len(payloads)} JSON lines and {len(verified)} verified lines")
+    head, v = json.loads(payloads[0]), verified[0]
+    plan = v["plan"] or {}
+    b, k, step = plan.get("batch", 0), plan.get("cohorts", 0), plan.get("step_s") or 0.0
+    ok = (head["metric"] == "concurrent_realtime_streams" and head["value"] > 0
+          and head["value"] == b * k and k * step <= 0.016 and step + 0.016 / k <= 0.010
+          and v["backend"] == "grid" and v["launches"] > 0)
+    launches["fused_grid_b2"] += v["launches"] or 0
+    dev_s = (f"{plan['event_s'] * 1e3:.3f} ms/step by CUDA events, device busy "
+             f"{plan['busy_s'] * 1e3:.3f} ms/step, idle share {plan['idle']:.1%} (torch.profiler)"
+             if "busy_s" in plan else "CUDA events and idle share not measured")
+    say("bench", f"bench --budget 45 ({bench_s:.1f} s): {head['value']} streams "
+                 f"(vs_baseline {head['vs_baseline']:.2f}) = K={k} x {b} on B2 bf16, "
+                 f"{step * 1e3:.3f} ms/step round-robin (host clock), {dev_s}, keep-up "
+                 f"{k * step * 1e3:.2f}/16 ms, latency {(step + 0.016 / max(k, 1)) * 1e3:.2f}/10 "
+                 f"ms, {v['launches']} B2 launches {'ok' if ok else 'FAILED'}; card {card}")
+    if not ok:
+        fail("bench: no verified real-time plan on B2")
+
+    # -- the paced soak at the verified plan
+    rep, soak_s = run("serve_soak", serve_soak.main,
+                      ["--batch", str(b), "--cohorts", str(k), "--seconds", "5",
+                       "--warm-seconds", "2", "--admit-every", "0.5"], echo=False)
+    ok = (bool(rep) and rep["nonfinite_steps"] == 0 and rep["launches"] == rep["steps_fired"]
+          and rep["releases"] >= 1 and rep["released_dirty"] == rep["releases"]
+          and rep["readmits_checked"] >= 1 and rep["readmits_nonzero"] == 0)
+    launches["fused_grid_b2"] += rep.get("launches", 0)
+    if rep:
+        lat = rep["latency_ms"]
+        say("bench", f"serve_soak K={k} x {b} B2 bf16 ({soak_s:.1f} s): {rep['intervals']} paced "
+                     f"intervals, {rep['probes']} probes, latency p50 {lat['p50']:.3f} / p90 "
+                     f"{lat['p90']:.3f} / p99 {lat['p99']:.3f} / max {lat['max']:.3f} ms, p99 + "
+                     f"phase {rep['p99_plus_phase_ms']:.3f}/10 ms, enqueue overruns "
+                     f"{rep['enqueue_overruns']}, probe-artifact overruns "
+                     f"{rep['probe_artifact_overruns']}, budget misses {rep['budget_misses']}, "
+                     f"pass {rep['pass']} (reported, not enforced); warm step "
+                     f"{rep['warm_ms_per_step']:.3f} ms; {rep['admits']} admits, "
+                     f"{rep['releases']} releases of dirty slots ({rep['released_dirty']}), "
+                     f"{rep['readmits_checked']} readmitted slots zero "
+                     f"({rep['readmits_nonzero']} not), non-finite steps {rep['nonfinite_steps']}, "
+                     f"{rep['launches']} B2 launches for {rep['steps_fired']} steps "
+                     f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"serve_soak failed its checks: {rep}")
+
+    # -- the int8 step, the training rate, the roofline
+    res8, s8 = run("bench_int8", bench_int8.main, ["4096", "32768", "--chain", "20"])
+    ok = set(res8) == {4096, 32768} and all(math.isfinite(x) and x > 0 for x in res8.values())
+    say("bench", "bench_int8 (%.1f s): %s %s" % (s8, ", ".join(
+        f"{bb}: {t * 1e3:.3f} ms/frame, {t / bb * 1e9:.1f} ns/stream "
+        f"[{bench_int8.rt_verdict(t)}]" for bb, t in res8.items()), "ok" if ok else "FAILED"))
+    if not ok:
+        fail("bench_int8 failed")
+    rest, st = run("train_speed", train_speed.main,
+                   ["--crop_s", "10", "--batches", "8", "--chain", "4"])
+    ok = len(rest) == 2 and all(math.isfinite(r["step_s"]) and r["peak_bytes"] > 0
+                                for r in rest.values())
+    say("bench", "train_speed 8 x 10 s (%.1f s): %s %s" % (st, "; ".join(
+        f"{lab}: {r['step_s'] * 1e3:.1f} ms/step (host), {r['event_s'] * 1e3:.1f} (CUDA events), "
+        f"{r['audio_x']:.0f}x real-time, peak {r['peak_bytes'] / 2**30:.2f} GiB"
+        for (_b, lab), r in rest.items()), "ok" if ok else "FAILED"))
+    if not ok:
+        fail("train_speed failed")
+    roof, sr = run("roofline", roofline.main, ["--batch", "8192"])
+    roof1, _ = run("roofline B1", roofline.main,
+                   ["--batch", "8192", "--backend", "step", "--bw_gb", str(roof["bw_gb"])])
+    launches["fused_grid_b2"] += roof["launches"]
+    launches["fused_step_b1"] += roof1["launches"]
+    ok = roof["bw_gb"] > 0 and roof["launches"] > 0 and roof1["launches"] > 0
+    say("bench", f"roofline 8,192 ({sr:.1f} s): bandwidth {roof['bw_gb']:.0f} GB/s, served step "
+                 f"B2 {roof['step_s'] * 1e3:.3f} ms / B1 {roof1['step_s'] * 1e3:.3f} ms, fused "
+                 f"forward bound {roof['op_bound_ms']:.4f} ms by {roof['bound_by']} "
+                 f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("roofline failed")
+    if not all(launches.values()):
+        fail(f"phase 12 launched a kernel of its path no time: {launches}")
+    say("bench", f"kernel launches in phase 12: {launches}; phase 12 took "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> None:
@@ -1760,6 +1800,8 @@ def main() -> None:
         unpack,
     )
     from gtcrn_micro_tpu_torch.serve import CohortServer, plan_cohorts
+    from gtcrn_micro_tpu_torch.utils.profiling import profile_split
+    from gtcrn_micro_tpu_torch.utils.roofline import fused_step_bound, work_per_stream
 
     # -- 2. build --------------------------------------------------------
     native_build = None
@@ -1845,7 +1887,8 @@ def main() -> None:
 
     # the served shape: one step from the same state, kernel vs plain
     BS, dt = 8192, torch.bfloat16
-    macs, ring_read, ring_written = work_per_stream(RING_DEFS, unpack(plain.weights))
+    W32 = unpack(plain.weights)
+    macs = work_per_stream(W32)[0]
     esz = torch.finfo(dt).bits // 8
     spec_s = (torch.randn((BS, 257, 1, 2), generator=g) * 0.2).to(dev, dt)
     plain16 = LayoutGTCRNMicro(params, dtype=dt, device=dev)
@@ -1881,11 +1924,8 @@ def main() -> None:
         sys.exit(0)
 
     def bound(b):
-        """(ms, by) the card needs at least for one step of b streams."""
-        flops = 2 * macs * b
-        nbytes = esz * b * (2 * 257 * 2 + ring_read + ring_written) + 4 * kw_floats
-        by = "bytes" if nbytes / H100_HBM_BYTES > flops / H100_F32_FLOPS else "operations"
-        return max(nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS) * 1e3, by, flops, nbytes
+        """(ms, by, FLOPs, bytes) the card needs at least for one step of b streams."""
+        return fused_step_bound(W32, b, esz, kw_floats)
 
     kw_floats = models["fused_grid_b2"].kernel_weights.buf.numel()
     bound_ms, bound_by, flops, nbytes = bound(BS)
@@ -1978,7 +2018,7 @@ def main() -> None:
         plan = plan_cohorts(step_ms / 1e3, BS)
         say("serve", f"served step B={BS} bf16 (CUDA events, median of 30): {step_ms:.3f} ms; "
                      f"card {card}")
-        say("serve", profile_split(torch, srv, chunk, K))
+        say("serve", profile_split(srv, chunk, K))
         say("serve", f"plan_cohorts({step_ms / 1e3:.6f} s, {BS}): K={plan.n_cohorts} cohorts, "
                      f"{plan.streams} streams, worst latency {plan.worst_latency_s * 1e3:.2f} ms")
         del srv, model
@@ -2038,8 +2078,12 @@ def main() -> None:
     # -- 11. export: DNSMOS, ONNX, exported programs, the export CLI -----------
     export_phase(torch, dev, params, card, enhanced)
 
+    # -- 12. bench: the measuring entry points -------------------------------
+    bench_launches = bench_phase(card)
+
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-             "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+             "launches": k["launches"], "bench_launches": bench_launches[name],
+             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
              "library_ms": None, "f32_max_abs_err": k["f32_max_abs_err"],
              "f32_snr_db": k["f32_snr_db"], "bf16_snr_db": k["bf16_snr_db"],

@@ -47,6 +47,22 @@ from gtcrn_micro_tpu_torch.parallel.mesh import (
 
 FRAME_S = 0.016
 LATENCY_BUDGET_S = 0.010
+BACKENDS = ("grid", "step", "layered")
+
+
+def make_backend(name: str, params: dict, dtype=torch.bfloat16, device=None):
+    """The model backend ``name`` (one of :data:`BACKENDS`: kernel B2, kernel
+    B1, the layered model) built from ``params`` in ``dtype`` on ``device``."""
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
+    from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro
+
+    if name == "layered":
+        return GTCRNMicro.from_params(params, dtype=dtype, device=device)
+    if name not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {name!r}")
+    cls = GridFusedGTCRNMicro if name == "grid" else FusedGTCRNMicro
+    return cls(params, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass
@@ -213,15 +229,26 @@ class CohortServer:
         if slot in self._recycled[cohort]:
             self._recycled[cohort].remove(slot)
             self._free[cohort].append(slot)
+        for view in self._slot_rows(cohort, slot):
+            view.zero_()
+
+    def slot_absmax(self, cohort: int, slot: int) -> torch.Tensor:
+        """The largest magnitude in one stream's state and DSP rows, as a
+        float32 scalar on the device (no synchronize): 0 after
+        :meth:`reset_slot`."""
+        return torch.stack([r.float().abs().amax() for r in self._slot_rows(cohort, slot)]).amax()
+
+    def _slot_rows(self, cohort: int, slot: int) -> list:
+        """Views of one stream's slice of every state tensor in its shard and,
+        in audio mode, of its DSP rows."""
         shard, local = divmod(slot, self.batch // len(self.mesh))
         axis = self.backends[shard].batch_axis
-        for k, v in self._states[cohort][shard].items():
-            if k != "step":
-                v.select(axis, local).zero_()
+        rows = [v.select(axis, local) for k, v in self._states[cohort][shard].items()
+                if k != "step"]
         if self.mode == "audio":
             d = self._dsp[cohort][shard]
-            d.in_buf[local] = 0
-            d.ola_buf[local] = 0
+            rows += [d.in_buf[local], d.ola_buf[local]]
+        return rows
 
     # -- serving -----------------------------------------------------------
 
@@ -275,9 +302,8 @@ def main(args=None) -> None:
 
     from gtcrn_micro_tpu_torch.io.params import load_params_npz
     from gtcrn_micro_tpu_torch.io.wav import read_wav, write_wav
-    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
-    from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
-    from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro, LayoutGTCRNMicro
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
+    from gtcrn_micro_tpu_torch.ops.fused_step import LayoutGTCRNMicro
 
     parser = argparse.ArgumentParser(description="cohort serving demo")
     parser.add_argument("--wav", default="", help="input wav (16 kHz mono)")
@@ -289,7 +315,7 @@ def main(args=None) -> None:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--cohorts", type=int, default=2)
     parser.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
-    parser.add_argument("--backend", choices=["grid", "step", "layered"], default="grid",
+    parser.add_argument("--backend", choices=BACKENDS, default="grid",
                         help="kernel B2, kernel B1, or the layered model")
     parser.add_argument("--chunk-hops", type=int, default=1,
                         help="hops per step (throughput mode; layered backend only)")
@@ -322,11 +348,7 @@ def main(args=None) -> None:
     hops = len(wav) // (hop * T) * T
     wav = torch.from_numpy(np.ascontiguousarray(wav[: hops * hop], np.float32))
 
-    if ns.backend == "layered":
-        model = GTCRNMicro.from_params(params, dtype=dtype, device=device)
-    else:
-        cls = GridFusedGTCRNMicro if ns.backend == "grid" else FusedGTCRNMicro
-        model = cls(params, dtype=dtype, device=device)
+    model = make_backend(ns.backend, params, dtype, device)
     runs = {}
     for label, m, t_hops in ((ns.backend, model, T),
                              ("plain", LayoutGTCRNMicro(params, dtype=dtype, device=device), 1)):

@@ -4,7 +4,13 @@ package's ``utils/profiling.py``).
 The reference times with wall-clock prints.  Here a trace is a Chrome trace
 (Perfetto, ``chrome://tracing``) of the host and, on a card, the device; a
 step on the card is timed by CUDA events around many calls, and by the host
-clock only where the caller asks for the CPU.
+clock only where the caller asks for the CPU.  ``chain_seconds`` is the
+measuring scripts' timing loop: chains of calls that end in a synchronize,
+on the host clock less the sync round trip, with CUDA events beside it.
+``device_events``, ``busy_idle``, ``idle_share`` and ``profile_split`` read
+the card's operations of a few back-to-back calls (torch.profiler): the
+device's busy time, its idle share of the host's wall clock, and the served
+step's time by kernel group.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import os
 import statistics
 import tempfile
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -79,3 +86,128 @@ def time_fn(fn, *args, iters: int = 100, device=None, **kwargs) -> float:
         end.record()
         end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+class ChainTimes(NamedTuple):
+    """Seconds per call of a timed chain (:func:`chain_seconds`)."""
+
+    median: float
+    min: float
+    max: float
+    event: float | None  # median between two CUDA events; None off the card
+
+
+def chain_seconds(fn, n: int, *, repeats: int = 3, rtt: float = 0.0,
+                  warm: int = 1) -> ChainTimes:
+    """Seconds per call of ``fn(i)`` (which returns a tensor) over ``repeats``
+    chains of ``n`` calls ``fn(0) .. fn(n - 1)``, each chain ended by a
+    synchronize on its last result: on the host clock less ``rtt`` (the
+    sync round trip) the median, min and max, and on a card the median
+    between two CUDA events around each chain.  ``fn(0) .. fn(warm - 1)``
+    and a synchronize come first."""
+    out = None
+    for i in range(warm):
+        out = fn(i)
+    sync(out)
+    on_card = out.device.type == "cuda"
+    lats, events = [], []
+    for _ in range(repeats):
+        if on_card:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            out = fn(i)
+        if on_card:
+            e1.record()
+        sync(out)
+        lats.append(max(time.perf_counter() - t0 - rtt, 1e-9) / n)
+        if on_card:
+            events.append(e0.elapsed_time(e1) / 1e3 / n)
+    lats.sort()
+    events.sort()
+    return ChainTimes(lats[len(lats) // 2], lats[0], lats[-1],
+                      events[len(events) // 2] if events else None)
+
+
+def device_events(fn, n: int):
+    """The device operations of ``n`` back-to-back calls ``fn(i)`` on the
+    card (torch.profiler), by start time, and the host wall clock (us) over
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return evs, wall_us
+
+
+def _busy_idle(evs, wall_us: float, n: int) -> tuple[float, float, int] | None:
+    busy = sum(e.time_range.elapsed_us() for e in evs)
+    if busy == 0:
+        return None
+    return busy / n / 1e3, 1 - busy / wall_us, len(evs) // n
+
+
+def busy_idle(fn, n: int = 10) -> tuple[float, float, int] | None:
+    """(device busy ms per call, idle share of the host wall clock, device
+    operations per call) over ``n`` back-to-back calls ``fn(i)`` on the card;
+    None when torch.profiler recorded no device time."""
+    return _busy_idle(*device_events(fn, n), n)
+
+
+def idle_share(fn, n: int = 10, top: int = 5) -> str:
+    """:func:`busy_idle` as a line, with the host wall clock per call and the
+    ``top`` device operations by their device time per call."""
+    evs, wall_us = device_events(fn, n)
+    summary = _busy_idle(evs, wall_us, n)
+    if summary is None:
+        return "torch.profiler recorded no device time: idle share not measured"
+    busy_ms, idle, ops = summary
+    by_name: dict[str, list] = {}
+    for e in evs:
+        acc = by_name.setdefault(e.name[:48], [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    tops = "; ".join(f"{name} x{c / n:.0f} {us / n / 1e3:.3f} ms" for name, (c, us) in ranked)
+    return (f"device busy {busy_ms:.3f} ms of {wall_us / n / 1e3:.3f} ms wall per step, "
+            f"{ops} device operations per step, idle share {idle:.1%} (torch.profiler, {n} "
+            f"steps, host clock, profiler on); top by device time per step: {tops}")
+
+
+def profile_split(srv, chunk, K: int, n: int = 10) -> str:
+    """Device time per served step of a ``serve.CohortServer`` in audio mode
+    on a fused backend, by kernel group (torch.profiler), and the device's
+    idle share of the host wall clock over ``n`` back-to-back steps."""
+    evs, wall_us = device_events(lambda i: srv.step(i % K, chunk), n)
+    glue = "glue (cat, copies, casts, OLA add)"
+    groups = {"STFT GEMM": 0.0, "kernel": 0.0, "iSTFT GEMM": 0.0, glue: 0.0}
+    # between two fused kernels the GEMM launches come in two runs split by
+    # glue: the iSTFT of one step, then the STFT of the next (a GEMM may take
+    # more than one launch); before the first kernel there is only an STFT
+    run, prev_gemm = 0, False
+    for e in evs:
+        is_gemm = "gemm" in e.name.lower()
+        if "fused_" in e.name:
+            g, run = "kernel", -1
+        elif is_gemm:
+            run += not prev_gemm
+            g = "iSTFT GEMM" if run == 0 else "STFT GEMM"
+        else:
+            g = glue
+        prev_gemm = is_gemm
+        groups[g] += e.time_range.elapsed_us()
+    busy = sum(groups.values())
+    if busy == 0:
+        return "torch.profiler recorded no device time: split not measured"
+    parts = ", ".join(f"{k} {v / n / 1e3:.3f} ms" for k, v in groups.items())
+    return (f"device time per step (torch.profiler, {n} steps): {parts}; busy "
+            f"{busy / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms wall, idle share "
+            f"{1 - busy / wall_us:.1%} (host clock, profiler on)")

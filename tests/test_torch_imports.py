@@ -1,5 +1,7 @@
 """The port stands alone: no module of gtcrn_micro_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package.
+chip_smoke.py, imports jax, the JAX package, or the root ``bench.py`` and
+``scripts/`` (the JAX system's measuring programs, which the port's
+``bench.py`` and ``scripts/`` replace).
 
 The check reads the sources (an AST scan) rather than ``sys.modules``: the
 test process imports both packages, and a host may pre-import jax.
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "gtcrn_micro_tpu", "optax", "orbax")
+FORBIDDEN = ("jax", "jaxlib", "gtcrn_micro_tpu", "optax", "orbax", "bench", "scripts")
 
 
 def _sources():
@@ -41,7 +43,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "runtime/native.py", "io/torch_ckpt.py", "quant/adaround.py", "quant/gptq.py",
                    "quant/mixed.py", "utils/profiling.py", "utils/complexity.py", "io/onnx.py",
                    "io/onnx_export.py", "io/export_program.py", "eval/dnsmos.py",
-                   "utils/config.py"):
+                   "utils/config.py", "utils/roofline.py", "bench.py", "scripts/sweep_cohort.py",
+                   "scripts/throughput_mode.py", "scripts/serve_soak.py", "scripts/bench_int8.py",
+                   "scripts/train_speed.py", "scripts/roofline.py", "scripts/profile_serving.py",
+                   "scripts/profile_train.py"):
         assert port / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -86,6 +91,20 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
     from gtcrn_micro_tpu_torch.ops.int8_step import Int8Serving
     from gtcrn_micro_tpu_torch.quant import adaround, mixed, parity, qat
     from gtcrn_micro_tpu_torch.utils import profiling
+    from gtcrn_micro_tpu_torch import bench
+    from gtcrn_micro_tpu_torch.scripts import (
+        bench_int8,
+        profile_serving,
+        profile_train,
+        roofline,
+        serve_soak,
+        sweep_cohort,
+        throughput_mode,
+        train_speed,
+    )
+
+    measuring = (bench, sweep_cohort, throughput_mode, serve_soak, bench_int8, train_speed,
+                 roofline, profile_serving, profile_train)
 
     opt = make_optimizer(layered, device="cpu")
     files = ["--checkpoint", "x.npz", "--wav_dir", "d", "--wav", "x.wav", "--calib_dir", "d"]
@@ -98,7 +117,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
                  lambda: profiling.time_fn(lambda: None), profiling.measure_rtt,
                  lambda: OnnxModel(os.path.join(DEFAULT_MODEL_DIR, "model_v8.onnx")),
                  lambda: DnsmosScorer(), lambda: dnsmos.main(["--inf_scp", "x", "--output_dir", "o"]),
-                 lambda: export_program.main(["--checkpoint", "x.npz"])):
+                 lambda: export_program.main(["--checkpoint", "x.npz"]),
+                 *(lambda m=m: m.main([]) for m in measuring)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"

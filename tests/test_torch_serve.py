@@ -174,6 +174,40 @@ def test_reset_slot_zeroes_batch_column(params):
         assert float(buf[0].abs().max()) > 0.0 and float(buf[2].abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("layered", [False, True], ids=["grid", "layered"])
+def test_slot_absmax_reads_one_stream(params, layered):
+    """``slot_absmax`` is the largest magnitude of one stream's slice of the
+    state (last axis of the fused rings, first of the layered state) and of
+    its DSP rows: 0 after ``reset_slot``, the other streams untouched."""
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro as TModel
+
+    _, tp = params
+    if layered:
+        model = TModel.from_params(tp, dtype=torch.float32, device="cpu")
+        srv = CohortServer(model, tp, batch=3, n_cohorts=1, dtype=torch.float32,
+                           mode="audio", device="cpu")
+    else:
+        srv = _server(tp, batch=3, n_cohorts=1)
+    axis = srv.backends[0].batch_axis
+    assert axis == (0 if layered else -1)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        srv.step(0, torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32)))
+    d = srv._dsp[0][0]
+
+    def direct(slot):
+        vals = [float(v.select(axis, slot).abs().max()) for _, v in _ring_items(srv, 0)]
+        return max(vals + [float(d.in_buf[slot].abs().max()), float(d.ola_buf[slot].abs().max())])
+
+    before = [direct(s) for s in range(3)]
+    got = [srv.slot_absmax(0, s) for s in range(3)]
+    assert all(g.dtype == torch.float32 and g.dim() == 0 for g in got)
+    assert [float(g) for g in got] == before and min(before) > 0.0
+    srv.reset_slot(0, 1)
+    assert float(srv.slot_absmax(0, 1)) == 0.0 == direct(1)
+    assert [float(srv.slot_absmax(0, s)) for s in (0, 2)] == [before[0], before[2]]
+
+
 def test_slot_churn_second_stream_independent_of_first(params):
     """admit -> stream -> release -> admit again: the recycled slot is reset,
     so the second stream's output carries nothing of the first's history."""

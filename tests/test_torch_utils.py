@@ -84,6 +84,22 @@ def test_time_fn_on_the_cpu_and_refusal_without_a_card(monkeypatch):
         profiling.measure_rtt()
 
 
+def test_chain_seconds_on_the_cpu():
+    """The scripts' timing loop: the warm calls, then ``repeats`` chains of
+    ``fn(0) .. fn(n - 1)``; ordered times, no CUDA events off the card."""
+    calls = []
+
+    def fn(i):
+        calls.append(i)
+        return torch.full((4,), float(i))
+
+    t = profiling.chain_seconds(fn, 4, repeats=3, rtt=0.0, warm=2)
+    assert calls == [0, 1] + [0, 1, 2, 3] * 3
+    assert 0 < t.min <= t.median <= t.max and t.event is None
+    far = profiling.chain_seconds(fn, 2, repeats=1, rtt=10.0)
+    assert far.median == far.min == far.max == 1e-9 / 2  # rtt above the chain: floored
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path)) as path:
         y = torch.ones((64, 64)) @ torch.ones((64, 64))
