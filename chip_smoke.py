@@ -159,6 +159,27 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               ``roofline`` at 8,192 on B2 (bandwidth measured) and B1.  The
               kernels JSON line gives each kernel's launches in phase 12
               (``bench_launches``, which must not be 0).
+13. rest   -- the rest of the entry points (``scripts/smoke_all.py``,
+              ``ref_scale_run.py``, ``ref_scale_snapshot.py``,
+              ``sweep_chunk.py``, ``int8_microbench.py``, ``ab_psum.py``,
+              ``ring_bank_microbench.py``, ``ablate_shuffle.py``,
+              ``leak_probe.py``, the model demo, the complexity CLI and
+              ``serve --checkpoint``; kernel B2 in the serving demo):
+              ``smoke_all`` in its own process, every CLI end to end on
+              smoke data (exit 0 and its last line); beside it the
+              reference-scale driver at a small horizon, 128 clips of 10 s,
+              batch 8, 64 steps, warmup 40, SIGKILL at step 20, ``log_every``
+              4 (one seam, the lr peak at step 40 after a strictly rising
+              ramp, checkpoints 16/32/48/64 and the best), its snapshot; the
+              model demo (prefix difference exactly 0, streaming within
+              1e-4 of offline), the complexity CLI (19,014 and 41,929,335),
+              ``serve --checkpoint`` on phase 7's trainer directory
+              bit-identical to ``--params`` of the same weights on B2; then,
+              the card to themselves, ``sweep_chunk`` at 8,192,
+              ``int8_microbench`` at its defaults, ``ab_psum``,
+              ``ring_bank_microbench`` and ``ablate_shuffle`` at 8,192 (the
+              seam restored after), and ``leak_probe`` for 100 steps in each
+              mode, cut to fit the run (a ``[rest]`` line lists the cuts).
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -166,6 +187,7 @@ Prints the kernels JSON line, the card line, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -565,6 +587,8 @@ def train_phase(torch, dev, params, card) -> str:
         wall = time.perf_counter() - t0
         kept = tempfile.mkdtemp(dir=build)
         shutil.copytree(f"{d}/enh", f"{kept}/enh")
+        trained = tempfile.mkdtemp(dir=build)  # phase 13 serves it (phase 11 removes ``kept``)
+        shutil.copytree(f"{exp}/checkpoints", f"{trained}/checkpoints")
         scp = Path(f"{kept}/enh/inf.scp")
         scp.write_text(scp.read_text().replace(f"{d}/enh", f"{kept}/enh"))
     ok = (resumed == exp and [(m["epoch"], m["step"]) for m in val] == [(1, 1), (2, 2), (3, 3)]
@@ -578,7 +602,7 @@ def train_phase(torch, dev, params, card) -> str:
     if not ok:
         fail("train: train -> resume -> enhance -> score")
     say("train", f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
-    return f"{kept}/enh"
+    return f"{kept}/enh", f"{trained}/checkpoints"
 
 
 def tie_bounds(ref, got) -> tuple[bool, str]:
@@ -1642,13 +1666,27 @@ def export_phase(torch, dev, params, card, enhanced: str) -> None:
     say("export", f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def run_main(phase: str, label: str, main, argv, echo=True, **kwargs):
+    """``main(argv, **kwargs)`` with its standard output captured and, with
+    ``echo``, printed under ``[phase]``; returns (its result, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv, **kwargs)
+    if echo:
+        for ln in buf.getvalue().splitlines():
+            if ln.strip():
+                print(f"[{phase}]   {label}: {ln}", flush=True)
+    return res, time.perf_counter() - t0
+
+
 def bench_phase(card) -> dict:
     """Phase 12: the port's measuring entry points on the card
     (``gtcrn_micro_tpu_torch/bench.py``, ``scripts/``), each cut to fit the
     run.  Returns the launches of each kernel they counted."""
-    import contextlib
-    import io
-
     from gtcrn_micro_tpu_torch.scripts import bench_int8, roofline, serve_soak, train_speed
 
     t_phase = time.perf_counter()
@@ -1660,15 +1698,7 @@ def bench_phase(card) -> dict:
                  "bandwidth reused")
 
     def run(label, main, argv, echo=True):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            res = main(argv)
-        if echo:
-            for ln in buf.getvalue().splitlines():
-                if ln.strip():
-                    print(f"[bench]   {label}: {ln}", flush=True)
-        return res, time.perf_counter() - t0
+        return run_main("bench", label, main, argv, echo)
 
     # -- the headline bench, as its users run it, in a process of its own
     t0 = time.perf_counter()
@@ -1762,6 +1792,231 @@ def bench_phase(card) -> dict:
         fail(f"phase 12 launched a kernel of its path no time: {launches}")
     say("bench", f"kernel launches in phase 12: {launches}; phase 12 took "
                  f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+@contextlib.contextmanager
+def cut(module, **values):
+    """Set ``module``'s loop-count constants to ``values`` for the block."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def rest_phase(torch, dev, card, trained: str) -> dict:
+    """Phase 13: the rest of the entry points on the card -- the model demo,
+    the complexity CLI, ``serve --checkpoint``, ``scripts/smoke_all`` in its
+    own process, the reference-scale traversal at a small horizon and its
+    snapshot, and the layered model's probes.  ``trained`` is phase 7's
+    checkpoint directory (removed at the end).  Returns the launches of each
+    kernel it counted."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gtcrn_micro_tpu_torch import serve
+    from gtcrn_micro_tpu_torch.eval.infer import load_params
+    from gtcrn_micro_tpu_torch.models import gtcrn_micro
+    from gtcrn_micro_tpu_torch.nn import blocks
+    from gtcrn_micro_tpu_torch.scripts import (
+        ab_psum,
+        ablate_shuffle,
+        int8_microbench,
+        leak_probe,
+        ref_scale_run,
+        ref_scale_snapshot,
+        ring_bank_microbench,
+        sweep_chunk,
+    )
+    from gtcrn_micro_tpu_torch.utils import complexity
+    from gtcrn_micro_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    launches = {"fused_grid_b2": 0, "fused_step_b1": 0}
+    say("rest", "cuts against the JAX defaults: ref_scale_run 128 clips (10,000), 4 epochs x 16 "
+                "steps (22 x 1,250), warmup 40 (25,000), SIGKILL at step 20 (13,000), log every "
+                "4 (50), poll 0.25 s (20), batch 8 x 10 s kept; sweep_chunk at 8,192 only (six "
+                "batches) with 48 frames a chain and 6 steps at least (192, 24); ab_psum 8192 "
+                "with chains of 16 (96) and 2 repeats (5); ablate_shuffle chains of 32 (160); "
+                "leak_probe 100 steps a mode (600), logged every 25 (50); smoke_all, "
+                "int8_microbench and ring_bank_microbench uncut")
+    work = tempfile.mkdtemp(dir=ROOT / "build")
+    smoke_log = open(f"{work}/smoke_all.log", "w")
+    t_smoke = time.perf_counter()
+    # every CLI end to end in a process of its own, the traversal's driver beside it
+    smoke = subprocess.Popen([sys.executable, "-m", "gtcrn_micro_tpu_torch.scripts.smoke_all",
+                              "--root", f"{work}/smoke"], cwd=ROOT, stdout=smoke_log,
+                             stderr=subprocess.STDOUT)
+    try:
+        # -- the reference-scale traversal at a small horizon, and its snapshot
+        horizon = dict(clips=128, seconds=10.0, warmup=40, epochs=4, steps_per_epoch=16,
+                       log_every=4, poll_s=0.25)
+        rc, secs = run_main("rest", "ref_scale_run", ref_scale_run.main,
+                            ["--root", f"{work}/ref", "--kill-at-step", "20"], echo=False,
+                            **horizon)
+        with open(f"{work}/ref/summary.json") as f:
+            summ = json.load(f)
+        recs = ref_scale_run.read_metrics(summ["exp_dir"])
+        lr = [(r["step"], r["lr"]) for r in recs if "lr" in r]
+        rising = [v for s_, v in sorted(dict(lr).items()) if s_ <= 40]
+        seams = summ["seam_continuity"]
+        best_dir = CheckpointManager(f"{summ['exp_dir']}/checkpoints/best").steps()
+        ok = (rc == 0 and summ["lr_peak_step"] == 40
+              and all(a < b for a, b in zip(rising, rising[1:]))
+              and summ["lr_at_36"] < summ["lr_at_40"] and len(seams) == 1
+              and summ["restarts"] == 1 and len(summ["driver_seams"]) == 1
+              and summ["driver_seams"][0]["resumed_from_ckpt_step"] < seams[0]["resumed_at_step"]
+              and summ["final_step"] == 64 and summ["checkpoint_steps_on_disk"] == [16, 32, 48, 64]
+              and summ["best"] is not None and best_dir == [summ["best"]["best_step"]])
+        say("rest", f"ref_scale_run 128 x 10 s, batch 8, 64 steps, warmup 40 ({secs:.1f} s): "
+                    f"SIGKILL at logged step {summ['killed_at_logged_step']}, resumed from "
+                    f"checkpoint {summ['driver_seams'][0]['resumed_from_ckpt_step'] if summ['driver_seams'] else None}; "
+                    f"seams {seams}; lr peak at step {summ['lr_peak_step']} (lr_at_36 "
+                    f"{summ['lr_at_36']:.6g}, lr_at_40 {summ['lr_at_40']:.6g}, lr_at_64 "
+                    f"{summ['lr_at_64']:.6g}); checkpoints {summ['checkpoint_steps_on_disk']} + "
+                    f"best {summ['best']}; {summ['restarts']} restart {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"ref_scale_run: {summ}")
+        rc, _ = run_main("rest", "ref_scale_snapshot", ref_scale_snapshot.main,
+                         ["--root", f"{work}/ref", "--driver-log", f"{work}/none.log",
+                          "--out", f"{work}/evidence"], echo=False)
+        with open(f"{work}/evidence/summary.json") as f:
+            snap = json.load(f)
+        ok = (rc == 0 and snap["final_logged_step"] == 64 and snap["warmup_knee_crossed"]
+              and snap["lr_peak"][0] == 40 and len(snap["seam_continuity"]) == 1
+              and Path(f"{work}/evidence/metrics.jsonl").exists())
+        say("rest", f"ref_scale_snapshot: final_logged_step {snap['final_logged_step']}, "
+                    f"{snap['n_metric_records']} records, lr_peak {snap['lr_peak']}, knee crossed "
+                    f"{snap['warmup_knee_crossed']} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"ref_scale_snapshot: {snap}")
+
+        # -- the model demo and the complexity CLI
+        demo, _ = run_main("rest", "models.gtcrn_micro", gtcrn_micro.main, [])
+        ok = (demo["params"] == 19014 and demo["macs"] == 41929335 and demo["prefix_diff"] == 0
+              and demo["suffix_diff"] > 0 and demo["stream_diff"] <= 1e-4)
+        say("rest", f"models.gtcrn_micro demo: prefix diff {demo['prefix_diff']} (== 0), suffix "
+                    f"{demo['suffix_diff']:.3f} (> 0), streaming vs offline "
+                    f"{demo['stream_diff']:.3g} (<= 1e-4) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"models.gtcrn_micro demo: {demo}")
+        cplx, _ = run_main("rest", "utils.complexity", complexity.main, [])
+        if cplx != (19014, 41929335):
+            fail(f"utils.complexity: {cplx}")
+
+        # -- serve --checkpoint against --params of the same weights, on B2
+        flat = gtcrn_micro.flatten(load_params(trained, device="cpu"))
+        np.savez(f"{work}/trained.npz", **{k.replace(".", "/"): v.numpy() for k, v in flat.items()})
+        made = []
+        make_backend = serve.make_backend
+        serve.make_backend = lambda *a, **k: made.append(make_backend(*a, **k)) or made[-1]
+        try:
+            args = ["--seconds", "1", "--batch", "8", "--cohorts", "2"]
+            by_ckpt, _ = run_main("rest", "serve --checkpoint", serve.main,
+                                  args + ["--checkpoint", trained])
+            by_params, _ = run_main("rest", "serve --params", serve.main,
+                                    args + ["--params", f"{work}/trained.npz"])
+        finally:
+            serve.make_backend = make_backend
+        n_b2 = [m.launches for m in made]
+        launches["fused_grid_b2"] += sum(n_b2)
+        same = torch.equal(by_ckpt["grid"], by_params["grid"])
+        ok = same and len(n_b2) == 2 and min(n_b2) > 0
+        say("rest", f"serve --checkpoint (phase 7's trainer directory) vs "
+                    f"--params of the same weights, B2 bf16 1 s: bit-identical {same}, B2 "
+                    f"launches {n_b2} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("serve --checkpoint is not serve --params of the same weights")
+
+        rc = smoke.wait(timeout=900)
+        smoke_s = time.perf_counter() - t_smoke
+    finally:
+        if smoke.poll() is None:
+            smoke.kill()
+            smoke.wait()
+        smoke_log.close()
+    lines = Path(f"{work}/smoke_all.log").read_text().splitlines()
+    steps, label = [], ""
+    for ln in lines:  # "$ <command>", its output, then "  (<seconds> s)"
+        if ln.startswith("$ "):
+            words = ln[2:].split()
+            label = (words[2].removeprefix("gtcrn_micro_tpu_torch.") if words[1] == "-m"
+                     else words[words.index("import") + 1].rstrip(";") if words[1] == "-c"
+                     else " ".join(w for w in [Path(words[0]).name, words[1]]
+                                   if not w.startswith("/")))
+        elif ln.startswith("  (") and label:
+            steps.append(f"{label} {ln.strip()}")
+            label = ""
+    ok = rc == 0 and lines and lines[-1].startswith("ALL SMOKE SURFACES OK")
+    say("rest", f"smoke_all on the card ({smoke_s:.1f} s, beside the steps above): "
+                f"{len(steps)} steps: {'; '.join(steps)}; {lines[-1] if lines else ''} "
+                f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        for ln in lines[-60:]:
+            print(f"[rest]   smoke_all: {ln}", flush=True)
+        fail(f"smoke_all exited {rc}")
+
+    # -- the layered model's probes, the card to themselves
+    with cut(sweep_chunk, BATCHES=(8192,), CHAIN_FRAMES=48, MIN_STEPS=6):
+        cells, s1 = run_main("rest", "sweep_chunk", sweep_chunk.main, [])
+    ok = all(c is not None and all(math.isfinite(x) and x > 0 for x in c) for c in cells.values())
+    say("rest", f"sweep_chunk 8,192 ({s1:.1f} s): ms per frame at T=1/2/4/8 "
+                + " / ".join(f"{cells[(8192, t)][0] * 1e3:.3f}" for t in sweep_chunk.CHUNKS)
+                + f" {'ok' if ok else 'FAILED'}; card {card}")
+    if not ok:
+        fail(f"sweep_chunk: {cells}")
+    chains, s2 = run_main("rest", "int8_microbench", int8_microbench.main, [])
+    ok = set(chains) == {"bf16", "int8", "int8-noreq"} and all(
+        v is not None and math.isfinite(v) and v > 0 for v in chains.values())
+    say("rest", f"int8_microbench 16,384 x 40 layers ({s2:.1f} s): "
+                + ", ".join(f"{k} {v * 1e3:.3f} ms/chain" for k, v in chains.items())
+                + f" {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"int8_microbench: {chains}")
+    with cut(ab_psum, CHAIN=16, REPEATS=2):
+        ab, s3 = run_main("rest", "ab_psum", ab_psum.main, ["8192"])
+    ratios = ab[8192]["ratios"]
+    ok = len(ratios) == 3 and all(math.isfinite(r) and r > 0 for r in ratios.values())
+    say("rest", f"ab_psum 8192 ({s3:.1f} s): ring {ab[8192]['best_s']['ring'] * 1e3:.3f} ms/step; "
+                + ", ".join(f"{k}/ring {r:.3f}x" for k, r in ratios.items())
+                + f" {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"ab_psum: {ab}")
+    rb, s4 = run_main("rest", "ring_bank_microbench", ring_bank_microbench.main, ["8192"])
+    ok = all(math.isfinite(r["median_s"]) and r["median_s"] > 0 for r in rb.values())
+    say("rest", f"ring_bank_microbench 8192 ({s4:.1f} s): " + ", ".join(
+        f"{k} {r['median_s'] * 1e3:.3f} ms/step, {r['copy_ops']} aten::copy_, "
+        f"{r['device_copies']} device copies" for k, r in rb.items()) + f" {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"ring_bank_microbench: {rb}")
+    shipped = blocks.GTConvBlock.shuffle
+    with cut(ablate_shuffle, CHAIN=32):
+        ab2, s5 = run_main("rest", "ablate_shuffle", ablate_shuffle.main, ["8192"])
+    ok = (blocks.GTConvBlock.shuffle is shipped and set(ab2) == {"copy", "one-hot", "concat"}
+          and all(math.isfinite(v[0]) and v[0] > 0 for v in ab2.values()))
+    say("rest", f"ablate_shuffle 8192 ({s5:.1f} s): " + ", ".join(
+        f"{k} {v[0] * 1e3:.3f} ms/step" for k, v in ab2.items())
+        + f"; seam restored {blocks.GTConvBlock.shuffle is shipped} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"ablate_shuffle: {ab2}")
+    slopes, s6 = run_main("rest", "leak_probe", leak_probe.main,
+                          ["--mode", "all", "--steps", "100", "--log-every", "25"])
+    ok = set(slopes) == {"putonly", "compute", "full"} and all(map(math.isfinite, slopes.values()))
+    say("rest", f"leak_probe 8 x 160,000 samples, 100 steps a mode ({s6:.1f} s): "
+                + ", ".join(f"{k} {v:+.3f} MB/step" for k, v in slopes.items())
+                + f" against a 10.2 MB batch pair {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"leak_probe: {slopes}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(Path(trained).parent)
+    say("rest", f"kernel launches in phase 13: {launches}; phase 13 took "
+                f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2055,7 +2310,7 @@ def main() -> None:
     layered_phase(torch, dev, params, spec, card)
 
     # -- 7. train ---------------------------------------------------------
-    enhanced = train_phase(torch, dev, params, card)
+    enhanced, trained = train_phase(torch, dev, params, card)
 
     # -- 8. quant ---------------------------------------------------------
     quant = quant_phase(torch, dev, params, card)
@@ -2081,8 +2336,12 @@ def main() -> None:
     # -- 12. bench: the measuring entry points -------------------------------
     bench_launches = bench_phase(card)
 
+    # -- 13. rest: the CLIs, smoke_all, the reference-scale traversal, probes --
+    rest_launches = rest_phase(torch, dev, card, trained)
+
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "bench_launches": bench_launches[name],
+             "rest_launches": rest_launches[name],
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
              "library_ms": None, "f32_max_abs_err": k["f32_max_abs_err"],

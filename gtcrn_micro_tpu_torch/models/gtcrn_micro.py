@@ -343,3 +343,44 @@ def scan_stepper(step_fn, params, state: dict, spec):
         y, state = step_fn(params, state, spec[:, :, t : t + 1])
         outs.append(y)
     return torch.cat(outs, dim=2), state
+
+
+def main(argv=None) -> dict:
+    """``python -m gtcrn_micro_tpu_torch.models.gtcrn_micro [--device cpu]``:
+    the JAX package's demo of the model (complexity, causality, streaming
+    against offline) on seed-0 weights.  Returns the three measurements."""
+    import argparse
+
+    from gtcrn_micro_tpu_torch.utils.complexity import model_complexity
+
+    parser = argparse.ArgumentParser(description="complexity, causality and streaming demo")
+    parser.add_argument("--device", default=None, help="default: cuda")
+    ns = parser.parse_args(argv)
+    dev = resolve_device(ns.device)
+    model = GTCRNMicro.from_params(init_params(torch.Generator().manual_seed(0), device=dev),
+                                   device=dev)
+    n_params, n_macs = model_complexity(model)
+    print(f"params: {n_params / 1e3:.2f} k   MACs/s audio: {n_macs / 1e6:.2f} M")
+
+    # causality: identical prefixes -> identical outputs over the prefix
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((1, 257, 20, 2)).astype(np.float32)
+    b = a.copy()
+    b[:, :, 10:] = rng.standard_normal((1, 257, 10, 2))
+    with torch.no_grad():
+        ya = model.apply(torch.from_numpy(a).to(dev))
+        yb = model.apply(torch.from_numpy(b).to(dev))
+    pre = float((ya[:, :, :10] - yb[:, :, :10]).abs().max())
+    post = float((ya[:, :, 10:] - yb[:, :, 10:]).abs().max())
+    print(f"causality: prefix diff {pre:.2e} (==0), suffix diff {post:.3f} (>0)")
+
+    # streaming (the ring step, frame by frame) == offline
+    ys, _ = model.scan_frames(None, model.init_state(1), torch.from_numpy(a).to(dev))
+    stream = float((ys - ya).abs().max())
+    print(f"streaming vs offline: {stream:.2e}")
+    return {"params": n_params, "macs": n_macs, "prefix_diff": pre, "suffix_diff": post,
+            "stream_diff": stream}
+
+
+if __name__ == "__main__":
+    main()

@@ -95,7 +95,14 @@ class GTConvBlock(nn.Module):
         h = self.depth_act(self.depth_bn(ctx, self.depth_conv(ctx, h)))
         h = self.point_bn2(ctx, self.point_conv2(ctx, h))
         h = self.tra(ctx, h)
-        return torch.stack([h, x2], dim=-1).flatten(-2)
+        return self.shuffle(h, x2)
+
+    @staticmethod
+    def shuffle(x1, x2):
+        """Interleave channels: ``out[..., 2c] = x1[..., c]``, ``out[..., 2c + 1]
+        = x2[..., c]``, as one copy (JAX's ``GTConvBlock.shuffle`` takes two
+        one-hot products; ``scripts/ablate_shuffle.py`` swaps this seam)."""
+        return torch.stack([x1, x2], dim=-1).flatten(-2)
 
 
 class TCN(nn.Module):

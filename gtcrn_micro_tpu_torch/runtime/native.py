@@ -22,7 +22,8 @@ gets its own build.
     enhanced = eng.enhance(samples)      # whole-utterance wav -> wav
 
 ``CLI_PATH`` (the ``gtcrn_stream`` binary) is resolved, and built, on first
-access.
+access.  ``python -m gtcrn_micro_tpu_torch.runtime.native`` builds both and
+prints the CLI's path (the root ``scripts/build_native.sh``).
 """
 
 from __future__ import annotations
@@ -223,3 +224,8 @@ class NativeEngine:
     def __del__(self):
         if hasattr(self, "_fn"):
             self.close()
+
+
+if __name__ == "__main__":
+    lib = build_native()
+    print(f"built: {lib} and {Path(lib).parent / CLI_NAME}")

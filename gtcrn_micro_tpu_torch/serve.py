@@ -287,19 +287,24 @@ def _snr_db(ref, x) -> float:
                                            / max(err, 1e-20))).item()
 
 
-def main(args=None) -> None:
+def main(args=None) -> dict:
     """Demo CLI: enhance audio through the audio-mode cohort server.
 
     Admits one stream into a cohort, feeds ``--chunk-hops`` hops per
     (virtual) interval, and reports the backend's SNR against the plain
     PyTorch version of the fused kernels fed the same audio one hop at a
-    time.  Without ``--wav`` the input is a seeded synthetic signal; without
-    ``--params`` the weights are a seeded random init.
+    time.  Without ``--wav`` the input is a seeded synthetic signal.  The
+    weights come from ``--checkpoint`` (what ``eval.infer.load_params``
+    reads: a trainer's checkpoint directory, a ``.npz`` or the reference
+    ``.tar``) or ``--params`` (a flat ``.npz`` of JAX params), else a seeded
+    random init.  Returns the enhanced audio of the stream by backend name
+    and ``"plain"``.
     """
     import argparse
 
     import numpy as np
 
+    from gtcrn_micro_tpu_torch.eval.infer import load_params
     from gtcrn_micro_tpu_torch.io.params import load_params_npz
     from gtcrn_micro_tpu_torch.io.wav import read_wav, write_wav
     from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
@@ -308,7 +313,11 @@ def main(args=None) -> None:
     parser = argparse.ArgumentParser(description="cohort serving demo")
     parser.add_argument("--wav", default="", help="input wav (16 kHz mono)")
     parser.add_argument("--out", default="", help="write the enhanced wav here")
-    parser.add_argument("--params", default="", help="flat .npz of JAX params")
+    weights = parser.add_mutually_exclusive_group()
+    weights.add_argument("--params", default="", help="flat .npz of JAX params")
+    weights.add_argument("--checkpoint", default="",
+                         help="a trainer's checkpoint directory (its latest step), a .npz "
+                              "or the reference .tar")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--seconds", type=float, default=4.0,
                         help="length of the synthetic input without --wav")
@@ -328,7 +337,9 @@ def main(args=None) -> None:
     device = resolve_device(ns.device)
     mesh = [device] * ns.devices if device.type == "cpu" else make_mesh(ns.devices)
     device = canonical(mesh[0])
-    if ns.params:
+    if ns.checkpoint:
+        params = load_params(ns.checkpoint, device=device)
+    elif ns.params:
         params = load_params_npz(ns.params, device=device)
     else:
         params = init_params(torch.Generator().manual_seed(ns.seed), device=device)
@@ -375,6 +386,7 @@ def main(args=None) -> None:
     if ns.out:
         write_wav(ns.out, runs[ns.backend].numpy(), fs)
         print(f"wrote {ns.out}")
+    return runs
 
 
 if __name__ == "__main__":

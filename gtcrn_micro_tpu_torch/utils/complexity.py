@@ -85,3 +85,29 @@ def model_complexity(model, seconds: float = 1.0, fs: int = 16000) -> tuple[int,
     spec = torch.zeros((1, model.config.n_freqs, frames, 2), dtype=model.dtype,
                        device=model.device)
     return param_count(model.params()), macs(model.apply, spec)
+
+
+def main(argv=None) -> tuple[int, int]:
+    """``python -m gtcrn_micro_tpu_torch.utils.complexity [--device cpu]``:
+    the full-width model's parameters and MACs per second of audio against
+    the published figures.  The MAC count leaves out JAX's one-hot channel
+    shuffle (3,193,344 MACs), which this port interleaves by a copy."""
+    import argparse
+
+    from gtcrn_micro_tpu_torch import resolve_device
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
+
+    parser = argparse.ArgumentParser(description="parameters and MACs per second of audio")
+    parser.add_argument("--device", default=None, help="default: cuda")
+    ns = parser.parse_args(argv)
+    dev = resolve_device(ns.device)
+    model = GTCRNMicro.from_params(init_params(torch.Generator().manual_seed(0), device=dev),
+                                   device=dev)
+    n_params, n_macs = model_complexity(model)
+    print(f"params: {n_params / 1e3:.2f} k (published 19.01 k)")
+    print(f"MACs/s audio: {n_macs / 1e6:.2f} M (published 45.92 M)")
+    return n_params, n_macs
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,9 @@ Layout mirrors DNS3 (reference dataloader.py:16-17): ``<root>/{train,val}/
 {noisy,clean}/`` with ``fileid_<N>`` pairing tokens in filenames.  Clean =
 band-limited tone mixtures, noisy = clean + white noise at ~5 dB SNR.
 
-``python -m gtcrn_micro_tpu_torch.utils.make_smoke_data`` writes the data
-``configs/smoke.yaml`` reads.
+``python -m gtcrn_micro_tpu_torch.utils.make_smoke_data [root]`` writes the
+data ``configs/smoke.yaml`` reads (under ``/tmp/gtcrn_micro_tpu_smoke`` by
+default).
 """
 
 from __future__ import annotations
@@ -50,4 +51,6 @@ def make_smoke_data(root: str = "/tmp/gtcrn_micro_tpu_smoke", n_train: int = 16,
 
 
 if __name__ == "__main__":
-    print(make_smoke_data())
+    import sys
+
+    print(make_smoke_data(*sys.argv[1:2]))

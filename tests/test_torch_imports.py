@@ -46,7 +46,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "utils/config.py", "utils/roofline.py", "bench.py", "scripts/sweep_cohort.py",
                    "scripts/throughput_mode.py", "scripts/serve_soak.py", "scripts/bench_int8.py",
                    "scripts/train_speed.py", "scripts/roofline.py", "scripts/profile_serving.py",
-                   "scripts/profile_train.py"):
+                   "scripts/profile_train.py", "scripts/smoke_all.py", "scripts/ref_scale_run.py",
+                   "scripts/ref_scale_snapshot.py", "scripts/sweep_chunk.py",
+                   "scripts/int8_microbench.py", "scripts/ab_psum.py",
+                   "scripts/ring_bank_microbench.py", "scripts/ablate_shuffle.py",
+                   "scripts/leak_probe.py", "models/gtcrn_micro.py", "serve.py", "nn/blocks.py",
+                   "utils/make_smoke_data.py"):
         assert port / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -103,8 +108,24 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
         train_speed,
     )
 
+    from gtcrn_micro_tpu_torch import serve
+    from gtcrn_micro_tpu_torch.models import gtcrn_micro
+    from gtcrn_micro_tpu_torch.scripts import (
+        ab_psum,
+        ablate_shuffle,
+        int8_microbench,
+        leak_probe,
+        ref_scale_run,
+        ring_bank_microbench,
+        smoke_all,
+        sweep_chunk,
+    )
+    from gtcrn_micro_tpu_torch.utils import complexity
+
     measuring = (bench, sweep_cohort, throughput_mode, serve_soak, bench_int8, train_speed,
-                 roofline, profile_serving, profile_train)
+                 roofline, profile_serving, profile_train, sweep_chunk, int8_microbench, ab_psum,
+                 ring_bank_microbench, ablate_shuffle, leak_probe, ref_scale_run, smoke_all,
+                 complexity, gtcrn_micro)
 
     opt = make_optimizer(layered, device="cpu")
     files = ["--checkpoint", "x.npz", "--wav_dir", "d", "--wav", "x.wav", "--calib_dir", "d"]
@@ -118,6 +139,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_gpu(monkeypatch):
                  lambda: OnnxModel(os.path.join(DEFAULT_MODEL_DIR, "model_v8.onnx")),
                  lambda: DnsmosScorer(), lambda: dnsmos.main(["--inf_scp", "x", "--output_dir", "o"]),
                  lambda: export_program.main(["--checkpoint", "x.npz"]),
+                 lambda: serve.main(["--checkpoint", "x.npz"]),
                  *(lambda m=m: m.main([]) for m in measuring)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
