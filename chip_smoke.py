@@ -2055,7 +2055,6 @@ def main() -> None:
         unpack,
     )
     from gtcrn_micro_tpu_torch.serve import CohortServer, plan_cohorts
-    from gtcrn_micro_tpu_torch.utils.profiling import profile_split
     from gtcrn_micro_tpu_torch.utils.roofline import fused_step_bound, work_per_stream
 
     # -- 2. build --------------------------------------------------------
@@ -2267,13 +2266,12 @@ def main() -> None:
             fail(f"reset_slot: busy {busy} zeroed {zeroed} neighbour kept {kept} dsp {dsp_zero}")
         say("serve", f"admit/release/reset of cohort 1 slot {slot}: its ring columns and DSP "
                      f"rows zeroed, its neighbour's kept: ok")
-        # the served step by CUDA events, and its split by torch.profiler
+        # the served step by CUDA events
         chunk = torch.randn((BS, 256), generator=ga, device=dev).mul_(0.3).to(dt)
         step_ms = cuda_ms(torch, lambda: srv.step(0, chunk), n=30, warm=4)
         plan = plan_cohorts(step_ms / 1e3, BS)
         say("serve", f"served step B={BS} bf16 (CUDA events, median of 30): {step_ms:.3f} ms; "
                      f"card {card}")
-        say("serve", profile_split(srv, chunk, K))
         say("serve", f"plan_cohorts({step_ms / 1e3:.6f} s, {BS}): K={plan.n_cohorts} cohorts, "
                      f"{plan.streams} streams, worst latency {plan.worst_latency_s * 1e3:.2f} ms")
         del srv, model

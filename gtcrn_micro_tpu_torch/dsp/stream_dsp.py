@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from gtcrn_micro_tpu_torch import resolve_device
+from gtcrn_micro_tpu_torch.utils.profiling import span
 
 _NFFT = 512
 _HOP = 256
@@ -168,7 +169,9 @@ def make_audio_step(model, window: torch.Tensor, dft: str = "fft"):
     dsp_state, model_state)``, where ``chunk`` is (B, 256*T) samples and
     ``out_chunk`` the enhanced samples one hop behind.  ``dft="fft"`` uses the
     float32 FFT; ``"mxu"`` computes the windowed DFT pair as two GEMMs in the
-    serving dtype (the name is the JAX package's).
+    serving dtype (the name is the JAX package's).  Under ``torch.profiler``
+    the three phases are the spans ``serve.stft``, ``serve.model`` and
+    ``serve.istft`` (``utils/profiling.span``).
     """
     if dft not in ("fft", "mxu"):
         raise ValueError(f"dft must be 'fft' or 'mxu', got {dft!r}")
@@ -180,16 +183,19 @@ def make_audio_step(model, window: torch.Tensor, dft: str = "fft"):
             return [mats32[0].to(dtype), mats32[1].to(dtype).float()]
 
     def step(params, dsp_state: DspState, model_state, chunk: torch.Tensor):
-        if dft == "fft":
-            spec, dsp_state = stft_chunk(dsp_state, chunk, window)
-        else:
-            spec, dsp_state = _stft_chunk_mxu(dsp_state, chunk, mats(chunk.dtype)[0])
-        out_spec, model_state = model.step(params, model_state, spec)
-        if dft == "fft":
-            out, dsp_state = istft_chunk(dsp_state, out_spec, window)
-        else:
-            out, dsp_state = _istft_chunk_mxu(dsp_state, out_spec,
-                                              mats(out_spec.dtype)[1])
+        with span("serve.stft"):
+            if dft == "fft":
+                spec, dsp_state = stft_chunk(dsp_state, chunk, window)
+            else:
+                spec, dsp_state = _stft_chunk_mxu(dsp_state, chunk, mats(chunk.dtype)[0])
+        with span("serve.model"):
+            out_spec, model_state = model.step(params, model_state, spec)
+        with span("serve.istft"):
+            if dft == "fft":
+                out, dsp_state = istft_chunk(dsp_state, out_spec, window)
+            else:
+                out, dsp_state = _istft_chunk_mxu(dsp_state, out_spec,
+                                                  mats(out_spec.dtype)[1])
         return out, dsp_state, model_state
 
     return step

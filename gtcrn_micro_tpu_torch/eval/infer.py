@@ -25,6 +25,7 @@ import torch
 from gtcrn_micro_tpu_torch import resolve_device
 from gtcrn_micro_tpu_torch.dsp.stft import istft, sqrt_hann_window, stft
 from gtcrn_micro_tpu_torch.io.wav import extract_fileid, read_wav, resample, write_wav
+from gtcrn_micro_tpu_torch.utils.profiling import count, span, tracing
 
 FS = 16000
 
@@ -40,20 +41,35 @@ def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
                  progress: bool = True) -> dict[str, np.ndarray]:
     """Enhance wavs with ``model`` (a layered ``GTCRNMicro`` on ``device``,
     or its ``quant.ptq.QuantizedModel``) in bucket-padded batches; returns
-    path -> float32 waveform at 16 kHz."""
+    path -> float32 waveform at 16 kHz.
+
+    Under ``torch.profiler`` the call is the span ``infer.call`` over
+    ``infer.read`` (wav reads and resampling) and, a batch, ``infer.batch``
+    (assembly and reflect pad, then the trim) and ``infer.forward`` (STFT,
+    ``apply`` and iSTFT enqueued; the copy to the host that follows is the
+    call's own time); the counters ``infer.frames`` (each wav's own frames)
+    and ``infer.frames_computed`` (bucket frames times rows)
+    (``utils/profiling.span``, ``count``)."""
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not on {dev}")
+    with span("infer.call"):
+        return _enhance(model, wav_paths, batch_size, dev, progress)
+
+
+def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
+             progress: bool) -> dict[str, np.ndarray]:
     window = sqrt_hann_window(512, device=dev)
 
     loaded: list[tuple[str, np.ndarray]] = []
-    for p in wav_paths:
-        x, fs = read_wav(p)
-        if x.ndim > 1:
-            x = x[:, 0]
-        if fs != FS:
-            x = resample(x, fs, FS)
-        loaded.append((p, x.astype(np.float32)))
+    with span("infer.read"):
+        for p in wav_paths:
+            x, fs = read_wav(p)
+            if x.ndim > 1:
+                x = x[:, 0]
+            if fs != FS:
+                x = resample(x, fs, FS)
+            loaded.append((p, x.astype(np.float32)))
 
     buckets: dict[int, list[int]] = {}
     for i, (_, x) in enumerate(loaded):
@@ -67,23 +83,29 @@ def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
         samples = bucket * 256
         for j in range(0, len(idxs), batch_size):
             chunk = idxs[j : j + batch_size]
-            batch = np.zeros((len(chunk), samples), np.float32)
-            for k, i in enumerate(chunk):
-                x = loaded[i][1]
-                n = len(x)
-                batch[k, :n] = x
-                # reflect-pad the true tail: x[n-2], x[n-3], ... (the JAX
-                # package's slice x[n-2 : n-2-r : -1] is empty when r = n-1)
-                r = min(256, samples - n, n - 1)
-                if r > 0:
-                    batch[k, n : n + r] = x[n - 2 - np.arange(r)]
-            with torch.no_grad():
+            with span("infer.batch"):
+                batch = np.zeros((len(chunk), samples), np.float32)
+                for k, i in enumerate(chunk):
+                    x = loaded[i][1]
+                    n = len(x)
+                    batch[k, :n] = x
+                    # reflect-pad the true tail: x[n-2], x[n-3], ... (the JAX
+                    # package's slice x[n-2 : n-2-r : -1] is empty when r = n-1)
+                    r = min(256, samples - n, n - 1)
+                    if r > 0:
+                        batch[k, n : n + r] = x[n - 2 - np.arange(r)]
+                if tracing():
+                    count("infer.frames", sum(len(loaded[i][1]) // 256 + 1 for i in chunk))
+                    count("infer.frames_computed", bucket * len(chunk))
+            with torch.no_grad(), span("infer.forward"):
                 spec = stft(torch.from_numpy(batch).to(dev), window)
                 enh = model.apply(spec.to(model.dtype)).float()
-                wavs = istft(enh, window, length=samples).cpu().numpy()
-            for k, i in enumerate(chunk):
-                path, x = loaded[i]
-                out[path] = wavs[k, : len(x)]
+                wavs = istft(enh, window, length=samples)
+            wavs = wavs.cpu().numpy()
+            with span("infer.batch"):
+                for k, i in enumerate(chunk):
+                    path, x = loaded[i]
+                    out[path] = wavs[k, : len(x)]
             done += len(chunk)
             if progress:
                 print(f"\renhanced {done}/{len(loaded)}", end="", flush=True)

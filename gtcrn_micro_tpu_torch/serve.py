@@ -44,6 +44,7 @@ from gtcrn_micro_tpu_torch.parallel.mesh import (
     make_sharded_audio_serving_step,
     make_sharded_serving_step,
 )
+from gtcrn_micro_tpu_torch.utils.profiling import span, tracing
 
 FRAME_S = 0.016
 LATENCY_BUDGET_S = 0.010
@@ -258,15 +259,21 @@ class CohortServer:
         mode "spec":  frame is (batch, 257, T, 2) spectra -> enhanced spectra.
         mode "audio": frame is (batch, 256 T) samples -> enhanced samples one
         hop behind (the first emitted hop per stream is the center trim).
+
+        Under ``torch.profiler`` the call is the span ``serve.cohort_step``
+        (request: the cohort and its frames served before the call), over
+        the spans of the DSP and model step (``dsp/stream_dsp.py``).
         """
-        frame = frame.to(self.device, self.dtype)
-        if self.mode == "audio":
-            out, self._dsp[cohort], self._states[cohort] = self._step(
-                self.params, self._dsp[cohort], self._states[cohort], frame)
-        else:
-            out, self._states[cohort] = self._step(
-                self.params, self._states[cohort], frame)
-        self._frames[cohort] += self.chunk_hops
+        request = (cohort, self._frames[cohort]) if tracing() else None
+        with span("serve.cohort_step", request):
+            frame = frame.to(self.device, self.dtype)
+            if self.mode == "audio":
+                out, self._dsp[cohort], self._states[cohort] = self._step(
+                    self.params, self._dsp[cohort], self._states[cohort], frame)
+            else:
+                out, self._states[cohort] = self._step(
+                    self.params, self._states[cohort], frame)
+            self._frames[cohort] += self.chunk_hops
         return out
 
     def round_robin(self, frames: list) -> list:

@@ -1,5 +1,5 @@
-"""Profiling helpers: ``torch.profiler`` traces and step timing (the JAX
-package's ``utils/profiling.py``).
+"""Profiling helpers: ``torch.profiler`` traces, step timing, and the
+program's own spans and counters (the JAX package's ``utils/profiling.py``).
 
 The reference times with wall-clock prints.  Here a trace is a Chrome trace
 (Perfetto, ``chrome://tracing``) of the host and, on a card, the device; a
@@ -7,18 +7,24 @@ step on the card is timed by CUDA events around many calls, and by the host
 clock only where the caller asks for the CPU.  ``chain_seconds`` is the
 measuring scripts' timing loop: chains of calls that end in a synchronize,
 on the host clock less the sync round trip, with CUDA events beside it.
-``device_events``, ``busy_idle``, ``idle_share`` and ``profile_split`` read
-the card's operations of a few back-to-back calls (torch.profiler): the
-device's busy time, its idle share of the host's wall clock, and the served
-step's time by kernel group.
+``device_events``, ``busy_idle`` and ``idle_share`` read the card's
+operations of a few back-to-back calls (torch.profiler): the device's busy
+time and its idle share of the host's wall clock.
+
+``span`` and ``count`` record where the port's served step and offline entry
+point spend host time, while a ``torch.profiler`` session is on and only
+then (``tracing``); ``recorded`` returns what they kept (see :func:`span`).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
 import statistics
 import tempfile
+import threading
 import time
 from typing import NamedTuple
 
@@ -182,32 +188,112 @@ def idle_share(fn, n: int = 10, top: int = 5) -> str:
             f"steps, host clock, profiler on); top by device time per step: {tops}")
 
 
-def profile_split(srv, chunk, K: int, n: int = 10) -> str:
-    """Device time per served step of a ``serve.CohortServer`` in audio mode
-    on a fused backend, by kernel group (torch.profiler), and the device's
-    idle share of the host wall clock over ``n`` back-to-back steps."""
-    evs, wall_us = device_events(lambda i: srv.step(i % K, chunk), n)
-    glue = "glue (cat, copies, casts, OLA add)"
-    groups = {"STFT GEMM": 0.0, "kernel": 0.0, "iSTFT GEMM": 0.0, glue: 0.0}
-    # between two fused kernels the GEMM launches come in two runs split by
-    # glue: the iSTFT of one step, then the STFT of the next (a GEMM may take
-    # more than one launch); before the first kernel there is only an STFT
-    run, prev_gemm = 0, False
-    for e in evs:
-        is_gemm = "gemm" in e.name.lower()
-        if "fused_" in e.name:
-            g, run = "kernel", -1
-        elif is_gemm:
-            run += not prev_gemm
-            g = "iSTFT GEMM" if run == 0 else "STFT GEMM"
-        else:
-            g = glue
-        prev_gemm = is_gemm
-        groups[g] += e.time_range.elapsed_us()
-    busy = sum(groups.values())
-    if busy == 0:
-        return "torch.profiler recorded no device time: split not measured"
-    parts = ", ".join(f"{k} {v / n / 1e3:.3f} ms" for k, v in groups.items())
-    return (f"device time per step (torch.profiler, {n} steps): {parts}; busy "
-            f"{busy / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms wall, idle share "
-            f"{1 - busy / wall_us:.1%} (host clock, profiler on)")
+# -- the program's spans and counters ---------------------------------------
+
+SPAN_LIMIT = 1 << 20  # spans kept; the oldest go first
+
+
+class Span(NamedTuple):
+    """One closed :func:`span`.  Times are ``time.time_ns()``, the clock of
+    ``torch.profiler``'s host events.  ``parent``: the index in
+    :attr:`Recorded.spans` of the span that enclosed it on its thread (None
+    at a root, or where that span is still open or was dropped)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    request: object
+
+
+class Recorded(NamedTuple):
+    spans: list     # [Span], in the order they closed
+    counters: dict  # name -> total
+
+
+_OFF = contextlib.nullcontext()
+_LOCK = threading.Lock()
+_SPANS: collections.deque = collections.deque(maxlen=SPAN_LIMIT)
+_COUNTERS: dict = {}
+_SEQ = itertools.count()  # span ids, never reset, so a root's id names its request
+_OPEN = threading.local()
+
+
+def _open_spans() -> list:
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "request", "seq", "parent", "fn", "t0")
+
+    def __init__(self, name: str, request):
+        self.name, self.request = name, request
+
+    def __enter__(self):
+        stack = _open_spans()
+        top = stack[-1] if stack else None
+        self.seq = next(_SEQ)
+        self.parent = top.seq if top else None
+        if self.request is None:
+            self.request = top.request if top else self.seq
+        # a FUNCTION-scope range: a record_function (user-scope) range also
+        # gets a copy on the device's timeline, where a reader of the trace
+        # takes it for a device operation
+        self.fn = torch._C._profiler._RecordFunctionFast(self.name)
+        self.fn.__enter__()
+        self.t0 = time.time_ns()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.fn.__exit__(*exc)
+        _open_spans().pop()
+        with _LOCK:
+            _SPANS.append((self.seq, self.name, self.t0, t1, self.parent, self.request))
+        return False
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` session is on, so that spans and counters
+    record: a caller computes a span's request or a count only then."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str, request=None):
+    """``with span(name): ...`` records the block as a span while a
+    ``torch.profiler`` session is on: a range of that name in the profiler's
+    trace, and ``(name, start_ns, end_ns, parent, request)`` in memory
+    (:func:`recorded`).  ``request`` names the request the span serves; by
+    default the enclosing span's, or at a root the span's own id.  Off, it
+    returns one shared context that does nothing, so a span costs one check
+    of the profiler's state."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, request)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a ``torch.profiler`` session
+    is on."""
+    if torch.autograd._profiler_enabled():
+        with _LOCK:
+            _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def recorded() -> Recorded:
+    """The spans and counters recorded since the last :func:`clear`."""
+    with _LOCK:
+        raw, counters = list(_SPANS), dict(_COUNTERS)
+    at = {r[0]: i for i, r in enumerate(raw)}
+    return Recorded([Span(name, a, b, at.get(parent), request)
+                     for _, name, a, b, parent, request in raw], counters)
+
+
+def clear() -> None:
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTERS.clear()
