@@ -2185,7 +2185,8 @@ def main() -> None:
     bound_ms, bound_by, flops, nbytes = bound(BS)
     say("kernels", f"served shape B={BS} bf16: {macs} MAC/stream/frame -> {flops / 1e9:.3f} GFLOP "
                    f"f32, {nbytes / 1e6:.1f} MB moved; bound {bound_ms:.4f} ms by {bound_by} "
-                   f"(H100 SXM peaks: 67 TFLOP/s f32, 3.35 TB/s)")
+                   f"(H100 SXM peaks: 67 TFLOP/s f32, 494.7 TFLOP/s TF32 taken three times "
+                   f"for the tensor-core share, 3.35 TB/s)")
     timing_st = clone(st0)  # steps on it advance its counter; timing only
     plain_ms = cuda_ms(torch, lambda: plain16.step(None, timing_st, spec_s), n=10)
 

@@ -10,38 +10,46 @@
 // What bounds it on an H100: per stream and frame it reads 14,880 ring
 // values, writes 7,440 and reads/writes 514 spec values each (bytes), and
 // needs 550,815 multiply-adds, 1.10 MFLOP in f32 (operations; the ERB
-// matrices count by their 382 nonzeros each); see PERF.md.  At the served
-// batch the f32 operations bound it.  The kernel reaches about a tenth of
-// that bound: each CTA's chain of stages, not the card's throughput, sets its
-// time (PERF.md has the measurements and what is left).  The design:
+// matrices count by their 382 nonzeros each); see PERF.md.  Neither bound is
+// near: each CTA's chain of stages, not the card's throughput, sets its time
+// (PERF.md has the measurements and what is left).  The design:
 //
 // - One CTA owns TILE streams and runs the network layer by layer with every
 //   activation in shared memory, laid out [channel][freq][stream] (stream
 //   innermost), so an item (f, s) of a layer is one offset in each channel
-//   plane.  In every F = 33 layer one thread owns an item and keeps all its
-//   output channels in registers.
+//   plane.
 // - Weights: each layer's entries (one span of the float32 kernel weight
 //   buffer, ops/fused_step.py kernel_weights) are copied into one of two
-//   shared buffers with cp.async while the layer before runs.  A channel mix
-//   reads its weights as float4 broadcasts, 4 input channels of one output
-//   row per load, so each shared weight load feeds 4 FFMA and each
-//   activation is loaded once per layer.
+//   shared buffers with cp.async while the layer before runs.
+// - The 16-input channel mixes (en1, each TCN's pw1 and pw3, the decoder
+//   GTConvs' full 3x3 conv, every GTConv's pw2, de3), 85 % of the
+//   multiply-adds (utils/roofline.tc_macs_per_stream), run on tensor cores
+//   as three TF32 products (mma.sync m16n8k8, float32 to about 2^-21; see
+//   "channel mixes on tensor cores" below).  A warp owns 32 items of an
+//   F = 33 layer; a layer's weights are read once into mma fragments, in
+//   registers, and a mix's output fragment is the next mix's input as it
+//   stands.  Across a TCN stack each warp keeps the trunk in registers.
+//   The depthwise convs run on the same tiles in FFMA.
+// - The rest is one thread per item: the GTConvs' pw1, the TRA gate, en0,
+//   de4, the ERB merge and split and the mask, each channel mix read as
+//   float4 weight broadcasts, 4 input channels of one output row per load.
 // - The ERB merge and split loop over band tables (first bin, length,
 //   weights of each row's nonzero span), 382 multiply-adds each, not the
 //   12,288 of the dense matrices.
-// - Stages in which a thread owns its whole (f, s) column are fused: a TCN
-//   block (pw1 -> depthwise time conv -> pw3 + residual + PReLU) is one
-//   stage in registers; in a GTConv the depthwise/full 3x3 conv feeds pw2
-//   directly and the time taps' share of that conv is summed before its
-//   first barrier; the TRA gate and the channel interleave are one stage;
-//   SFE is computed as en0 loads its input; the decoder's skip adds happen
-//   as the next layer loads its input.  32 barriers per frame (the first
-//   version had ~75).
-// - A TCN loads its 32 ring-tap values before pw1, so their latency
-//   overlaps that mix.
+// - Stages are fused where the data allow: a TCN block (pw1 -> depthwise
+//   time conv -> pw3 + residual + PReLU) is one stage in registers; in a
+//   GTConv the 3x3 conv feeds pw2 directly and the time taps' share of that
+//   conv is summed before its first barrier; the TRA gate and the channel
+//   interleave are one stage; SFE is computed as en0 loads its input; the
+//   decoder's skip adds happen as the next layer loads its input.  32
+//   barriers per frame.
+// - Ring taps are loaded with every load of a round issued before any is
+//   used (no load waits alone in a branch), and a TCN's 32 tap values while
+//   the block before runs.
 //
 // Computation is float32 whatever the storage type T (float or bf16), with
-// IEEE expf/tanhf/sqrtf and divisions (no fast-math).
+// IEEE expf/tanhf/sqrtf and divisions (no fast-math); the tensor-core mixes
+// keep float32 accuracy by their three TF32 products, not its rounding.
 //
 // Ring contract: a ring's taps are x_{t-2d} (tap 0) and x_{t-d} (tap 1); the
 // new frame is written where tap 0 was read (B2, and B1 as its wrapper calls
@@ -60,6 +68,7 @@
 #include <atomic>
 
 #include "gtcrn_async.cuh"
+#include "gtcrn_mma.cuh"
 
 namespace gtcrn {
 
@@ -216,19 +225,6 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
   for (int i = 0; i < N; ++i) a[i] = 0.f;
 }
 
-// acc[c] += w[c] * x[c] over N channels (a depthwise tap), w read as float4.
-template <int N>
-__device__ __forceinline__ void dw(float (&acc)[N], const float* w, const float (&x)[N]) {
-#pragma unroll
-  for (int c4 = 0; c4 < N; c4 += 4) {
-    const float4 q = ld4(w + c4);
-    acc[c4] = fmaf(q.x, x[c4], acc[c4]);
-    acc[c4 + 1] = fmaf(q.y, x[c4 + 1], acc[c4 + 1]);
-    acc[c4 + 2] = fmaf(q.z, x[c4 + 2], acc[c4 + 2]);
-    acc[c4 + 3] = fmaf(q.w, x[c4 + 3], acc[c4 + 3]);
-  }
-}
-
 // The item of an F = 33 layer this thread works on and whether it is real
 // (the last warp holds fewer items; a thread past them computes on the last
 // item and writes nothing).
@@ -237,8 +233,137 @@ struct Item {
   bool valid;
 };
 __device__ __forceinline__ Item item33() {
-  const int raw = threadIdx.x;
+  const int raw = tid_now();
   return {raw < ITEMS ? raw : ITEMS - 1, raw < ITEMS};
+}
+
+// ---------------------------------------------------------------------------
+// channel mixes on tensor cores
+// ---------------------------------------------------------------------------
+//
+// Warp w owns the 32 items of an F = 33 layer at rows f = 4 w + 2 mt + h
+// (m-tile mt, half h) and stream s = g, with g = lane / 4 and q = lane % 4:
+// the rows of two m16 tiles of mma.  A tile is those items by 16 channels,
+// 16 floats a lane: value j = 8 mt + 4 kb + i is row h = i / 2 of m-tile mt
+// and channel 8 kb + chan(q, i % 2) (Lane::f, Lane::c), in one of two orders:
+// - split order, chan = q + 4 e: the A fragment's own; a warp's load of one
+//   such value from a [c][f][s] plane is free of bank conflicts (plane
+//   strides 33 x 8 and 65 x 8 are 8 mod 32);
+// - pair order, chan = 2 q + e: the C fragment of a product with 16 outputs
+//   (value 8 mt + 4 nt + i is D[row][8 nt + 2 q + e]), so one mix's output is
+//   the next mix's input as it stands, K permuted to match.
+// A mix of 16 inputs is, per m-tile, two k-steps of m16n8k8 per 8 outputs,
+// with B = W^T read once into registers (MixW).  Each operand is split into
+// TF32 parts, x = big + small, big = tf32(x), small = tf32(x - big), and
+// the product big*big + big*small + small*big is accumulated in float32:
+// float32 to about 2^-21 where one TF32 product keeps about 2^-11.  The
+// inputs of a warp's rows past the layer (f > 32) are a real row's or zero,
+// and their outputs are never written.
+
+// This thread's place in its warp's tiles: warp w, g = lane / 4, q = lane %
+// 4; c<PAIR>(j) and f(j) are value j's channel and row.  Each layer makes
+// its own from threadIdx.x read anew (tid_now), so that nothing derived from
+// it is hoisted out of the layer loops, where it would hold registers
+// through every other layer.
+struct Lane {
+  int w, g, q;
+  __device__ __forceinline__ Lane() {
+    const int t = tid_now();
+    w = t >> 5;
+    g = (t & 31) >> 2;
+    q = t & 3;
+  }
+  template <bool PAIR>
+  __device__ __forceinline__ int c(int j) const {
+    return 8 * ((j >> 2) & 1) + (PAIR ? 2 * q + (j & 1) : q + 4 * (j & 1));
+  }
+  __device__ __forceinline__ int f(int j) const { return 4 * w + 2 * (j >> 3) + ((j >> 1) & 1); }
+};
+// v clamped to [0, n): a tile's loads read a real address and select a zero
+// after, so that no load sits in a branch of its own (each would wait)
+__device__ __forceinline__ int clamp0(int v, int n) { return v < 0 ? 0 : (v < n ? v : n - 1); }
+
+__device__ __forceinline__ void split(float x, unsigned& big, unsigned& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// The weights [CO][16] (row-major, 8-byte aligned) of a mix with CO outputs
+// as split B fragments, K in the order of the input tile: [nt][kb][b0, b1]
+// is W[8 nt + g][channels 8 kb + chan(q, 0 and 1)].
+template <int CO, bool PAIR>
+struct MixW {
+  unsigned big[CO / 8][2][2], small[CO / 8][2][2];
+  __device__ __forceinline__ MixW(const float* w, const Lane& L) {
+    const int g = L.g, q = L.q;
+#pragma unroll
+    for (int nt = 0; nt < CO / 8; ++nt) {
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const float* r = w + (8 * nt + g) * C + 8 * kb;
+        float v[2];
+        if (PAIR) {
+          const float2 p = *reinterpret_cast<const float2*>(r + 2 * q);
+          v[0] = p.x;
+          v[1] = p.y;
+        } else {
+          v[0] = r[q];
+          v[1] = r[q + 4];
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) split(v[e], big[nt][kb][e], small[nt][kb][e]);
+      }
+    }
+  }
+};
+
+// acc (a pair-order tile of CO channels: value CO / 2 mt + 4 nt + i) += W @ x
+// for the warp's 32 items, x a tile in W's order.
+template <int CO, bool PAIR>
+__device__ __forceinline__ void mix_tc(float (&acc)[CO], const float (&x)[16],
+                                       const MixW<CO, PAIR>& w) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+      unsigned big[4], small[4];
+      const int at[4] = {0, 2, 1, 3};  // the A fragment's rows g, g + 8 of column q, then q + 4
+#pragma unroll
+      for (int k = 0; k < 4; ++k) split(x[8 * mt + 4 * kb + at[k]], big[k], small[k]);
+#pragma unroll
+      for (int nt = 0; nt < CO / 8; ++nt) {
+        float(&d)[4] = *reinterpret_cast<float(*)[4]>(&acc[CO / 2 * mt + 4 * nt]);
+        mma_tf32(d, small, w.big[nt][kb]);
+        mma_tf32(d, big, w.small[nt][kb]);
+        mma_tf32(d, big, w.big[nt][kb]);
+      }
+    }
+  }
+}
+
+// R = this warp's rows f0 - 1 .. f0 + 4 of a (16, 33) plane at the lane's
+// four channels of a tile in the order, zero outside the layer: value
+// 4 r + 2 kb + e is row f0 - 1 + r, channel 8 kb + chan(q, e).  v(c, f) reads
+// a row of the layer.  A 3-tap freq conv's tiles come from these 6 rows.
+template <bool PAIR, class V>
+__device__ __forceinline__ void load_rows(float (&R)[24], const Lane& L, V v) {
+  const int f0 = 4 * L.w, q = L.q;
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int fi = f0 - 1 + r, e = k & 1;
+      const float x = v(8 * (k >> 1) + (PAIR ? 2 * q + e : q + 4 * e), clamp0(fi, F_DOWN));
+      R[4 * r + k] = (fi >= 0 && fi < F_DOWN) ? x : 0.f;
+    }
+  }
+}
+
+// The tile of tap kf of a 3-tap freq conv (rows f + kf - 1) from rows R.
+__device__ __forceinline__ void tap_tile(float (&x)[16], const float (&R)[24], int kf) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    x[j] = R[4 * (2 * (j >> 3) + ((j >> 1) & 1) + kf) + 2 * ((j >> 2) & 1) + (j & 1)];
 }
 
 // ---------------------------------------------------------------------------
@@ -252,14 +377,14 @@ struct Smem {
   static constexpr int TRUNK = SKIP1 + 4 * C * F_DOWN * S;  // (16, 33) TCN0..de3; then the mask (2, 129)
   static constexpr int WORK = TRUNK + C * F_DOWN * S;
   // WORK holds, in turn: the spectrum (2, 257), its magnitude (257) and the
-  // ERB features (3, 129); a GTConv's h (16, 33) and h3 (8, 33); de3's
-  // output (16, 65)
+  // ERB features (3, 129); a GTConv's h (16, 33), h3 (8, 33) and its warps'
+  // energy sums (9, 8); de3's output (16, 65)
   static constexpr int WORK_N = (2 * F_FULL + F_FULL + 3 * F_ERB) * S;
   static constexpr int E01 = WORK + WORK_N;              // a TRA ring's taps (2, 8)
   static constexpr int WB = (E01 + 2 * H * S + 3) / 4 * 4;  // two weight buffers of WBUF
   static constexpr int TOTAL = WB + 2 * WBUF;
   __host__ __device__ static constexpr int skip(int k) { return k == 0 ? SKIP0 : SKIP1 + (k - 1) * C * F_DOWN * S; }
-  static_assert(C * F_DOWN * S + H * F_DOWN * S <= WORK_N && C * F_MID * S <= WORK_N, "WORK");
+  static_assert((C + H) * F_DOWN * S + NT / 32 * H * S <= WORK_N && C * F_MID * S <= WORK_N, "WORK");
   static_assert(2 * F_ERB * S <= C * F_DOWN * S, "the mask fits the trunk");
   static_assert(WB % 4 == 0, "weight buffers are 16-byte aligned");
 };
@@ -409,73 +534,94 @@ __device__ void en0(const float* sfe, const float* w, const float* bias, float a
 }
 
 // en1: (1,5) freq conv, stride 2, pad 2, 16 -> 16 channels, 65 -> 33, folded
-// bias + PReLU.  w is (5, 16, 16).
+// bias + PReLU, on tensor cores.  w is (5, 16, 16).
 template <int S>
 __device__ void en1(const float* w, const float* bias, float a, const float* in, float* out) {
-  for (int it = threadIdx.x; it < ITEMS; it += NT) {
-    const int fo = it / S, s = it % S;
-    float acc[C];
-    zero(acc);
+  const Lane L;
+  const int s = L.g;
+  float acc[16];
+  zero(acc);
 #pragma unroll 1
-    for (int k = 0; k < 5; ++k) {
-      const int fi = 2 * fo + k - 2;
-      if (fi < 0 || fi >= F_MID) continue;
-      float x[C];
+  for (int k = 0; k < 5; ++k) {
+    float x[16];
 #pragma unroll
-      for (int ci = 0; ci < C; ++ci) x[ci] = in[(ci * F_MID + fi) * S + s];
-      mix<C, C>(acc, w + k * C * C, x);
+    for (int j = 0; j < 16; ++j) {
+      const int fi = 2 * L.f(j) + k - 2;
+      const float v = in[(L.c<false>(j) * F_MID + clamp0(fi, F_MID)) * S + s];
+      x[j] = (fi >= 0 && fi < F_MID) ? v : 0.f;
     }
+    mix_tc(acc, x, MixW<C, false>(w + k * C * C, L));
+  }
 #pragma unroll
-    for (int co = 0; co < C; ++co) out[(co * F_DOWN + fo) * S + s] = prelu(acc[co] + bias[co], a);
+  for (int j = 0; j < 16; ++j) {
+    const int co = L.c<true>(j), fo = L.f(j);
+    if (fo < F_DOWN) out[(co * F_DOWN + fo) * S + s] = prelu(acc[j] + bias[co], a);
   }
 }
 
 // GTConvBlock on (16, 33): in (+ skip, in the decoder) -> out (in == out
 // allowed).  The 3x3 conv over (x_{t-2}, x_{t-1}, h) is depthwise in the
-// encoder and a full 16x16 conv in the decoder.  Reads both taps of rings
-// rdw and rtra before its first barrier; writes their new frames (h and the
-// TRA energy e) after it.  Three stages, three barriers (the last is the
-// next layer's advance).
+// encoder and a full 16x16 conv on tensor cores in the decoder, over the
+// warp's tile; pw2 after it on tensor cores; pw1 and the TRA one thread an
+// item.  Reads both taps of rings rdw and rtra before its first barrier;
+// writes their new frames (h and the TRA energy e) after it.  Three stages,
+// three barriers (the last is the next layer's advance).
 template <typename T, int S, bool DECONV, class IO>
 __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int rtra,
                        const float* in, const float* skip, float* out, float* sm, int b0, int B) {
   using M = Smem<S>;
   float* hs = sm + M::WORK;              // h (16, 33)
   float* h3s = hs + C * F_DOWN * S;      // h3 (8, 33)
+  float* esum = h3s + H * F_DOWN * S;    // per warp, the sum of h3^2 over its rows (NT / 32, 8)
   float* e01 = sm + M::E01;              // TRA taps (2, 8)
   const Item I = item33();
   const int f = I.it / S, s = I.it % S, b = b0 + s;
   const bool live = I.valid && b < B;
   const float* wdw = w(gw.dw_w);
+  // the conv's tile: stream ts, read from the rings at stream b0 + ts, or at
+  // the last real one for a stream past B, whose outputs are never written
+  const Lane L;
+  const int ts = L.g;
+  float y[16];  // the 3x3 conv (pair-order tile): the time taps here, h's taps in b
+  zero(y);
+  // tap kk (frame kk / 3, freq kk % 3 - 1) of the conv on tile x
+  auto conv_tap = [&](int kk, const float (&x)[16]) {
+    if constexpr (DECONV) {
+      mix_tc(y, x, MixW<C, true>(wdw + kk * C * C, L));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) y[j] = fmaf(wdw[kk * C + L.c<true>(j)], x[j], y[j]);
+    }
+  };
 
   // -- a: the time taps' part of the 3x3 conv; h = PReLU(pw1 @ x[:8] + b)
   if (threadIdx.x < S) {  // one thread per stream fetches its TRA taps
-    const int ts = threadIdx.x, tb = b0 + ts;
+    const int es = threadIdx.x, eb = b0 + es;
     const T* e0 = io.t0(rtra);
     const T* e1 = io.t1(rtra);
 #pragma unroll
     for (int c = 0; c < H; ++c) {
-      e01[c * S + ts] = tb < B ? to_f(e0[(size_t)c * B + tb]) : 0.f;
-      e01[(H + c) * S + ts] = tb < B ? to_f(e1[(size_t)c * B + tb]) : 0.f;
+      e01[c * S + es] = eb < B ? to_f(e0[(size_t)c * B + eb]) : 0.f;
+      e01[(H + c) * S + es] = eb < B ? to_f(e1[(size_t)c * B + eb]) : 0.f;
     }
   }
-  float y[C];  // the 3x3 conv, from the time taps here and from h in b
-  zero(y);
   {
     const T* t0 = io.t0(rdw);
     const T* t1 = io.t1(rdw);
 #pragma unroll 1
-    for (int kk = 0; kk < 6; ++kk) {
-      const int kf = kk % 3, fi = f + kf - 1;
-      if (fi < 0 || fi >= F_DOWN) continue;
-      const T* tp = kk < 3 ? t0 : t1;
-      float x[C];
+    for (int fr = 0; fr < 2; ++fr) {  // a frame's rows, one round of loads
+      const T* tp = fr ? t1 : t0;
+      const Lane Lf;  // its addresses made in the loop, not held through it
+      const int bf = b0 + Lf.g < B ? b0 + Lf.g : B - 1;
+      float R[24];
+      load_rows<true>(R, Lf,
+                      [&](int c, int fi) { return to_f(tp[(size_t)(c * F_DOWN + fi) * B + bf]); });
 #pragma unroll
-      for (int c = 0; c < C; ++c) x[c] = live ? to_f(tp[(size_t)(c * F_DOWN + fi) * B + b]) : 0.f;
-      if (DECONV)
-        mix<C, C>(y, wdw + kk * C * C, x);
-      else
-        dw<C>(y, wdw + kk * C, x);
+      for (int kf = 0; kf < 3; ++kf) {
+        float x[16];
+        tap_tile(x, R, kf);
+        conv_tap(3 * fr + kf, x);
+      }
     }
   }
   {
@@ -499,31 +645,43 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
 
   // -- b: h2 = PReLU(conv + b) with h's part of the conv, h3 = pw2 @ h2 + b;
   // the dw ring's new frame is h, now that every read of its tap 0 is done
-#pragma unroll 1
-  for (int kf = 0; kf < 3; ++kf) {
-    const int fi = f + kf - 1;
-    if (fi < 0 || fi >= F_DOWN) continue;
-    float x[C];
+  {
+    // h's rows in split order for the full conv's products (free of bank
+    // conflicts), in pair order for the depthwise conv (y's channels)
+    float R[24];
+    load_rows<!DECONV>(R, L, [&](int c, int fi) { return hs[(c * F_DOWN + fi) * S + ts]; });
 #pragma unroll
-    for (int c = 0; c < C; ++c) x[c] = hs[(c * F_DOWN + fi) * S + s];
-    if (DECONV)
-      mix<C, C>(y, wdw + (6 + kf) * C * C, x);
-    else
-      dw<C>(y, wdw + (6 + kf) * C, x);
+    for (int kf = 0; kf < 3; ++kf) {
+      float x[16];
+      tap_tile(x, R, kf);
+      if constexpr (DECONV) {
+        mix_tc(y, x, MixW<C, false>(wdw + (6 + kf) * C * C, L));
+      } else {
+        conv_tap(6 + kf, x);
+      }
+    }
   }
   {
     const float* bdw = w(gw.dw_b);
     const float a2 = *w(gw.a2);
-#pragma unroll
-    for (int c = 0; c < C; ++c) y[c] = prelu(y[c] + bdw[c], a2);
-    float h3[H];
-    zero(h3);
-    mix<C, H>(h3, w(gw.pw2_w), y);
     const float* b2 = w(gw.pw2_b);
-    if (I.valid) {
 #pragma unroll
-      for (int c = 0; c < H; ++c) h3s[(c * F_DOWN + f) * S + s] = h3[c] + b2[c];
+    for (int j = 0; j < 16; ++j) y[j] = prelu(y[j] + bdw[L.c<true>(j)], a2);
+    float h3[H];  // pair order, 8 channels: value 4 mt + i is channel 2 q + i % 2
+    zero(h3);
+    mix_tc(h3, y, MixW<H, true>(w(gw.pw2_w), L));
+    float e2[2] = {0.f, 0.f};  // the TRA energy's share of this warp's rows
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const int c = 2 * L.q + (j & 1), fo = L.f(2 * (j & ~3) + (j & 3));
+      const float v = h3[j] + b2[c];
+      if (fo < F_DOWN) {
+        h3s[(c * F_DOWN + fo) * S + ts] = v;
+        e2[j & 1] = fmaf(v, v, e2[j & 1]);
+      }
     }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) esum[(L.w * H + 2 * L.q + e) * S + ts] = e2[e];
     if (live) {
       T* fr = io.out(rdw);
 #pragma unroll
@@ -536,7 +694,7 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
   __syncthreads();
 
   // -- c: TRA energy e = mean_f h3^2 of this stream (every item of the
-  // stream computes it), yg = 3-tap time conv over (e_{t-2}, e_{t-1}, e),
+  // stream adds the warps' sums), yg = 3-tap time conv over (e_{t-2}, e_{t-1}, e),
   // gate = sigmoid(tra_pw @ yg + b); out[2i] = h3[i] * gate[i] (gated half),
   // out[2i+1] = x[8+i] (passive half); the TRA ring's new frame is e
   float x2[H];
@@ -552,11 +710,8 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
 #pragma unroll
     for (int c = 0; c < H; ++c) {
       float acc = 0.f;
-#pragma unroll 11
-      for (int ff = 0; ff < F_DOWN; ++ff) {
-        const float v = h3s[(c * F_DOWN + ff) * S + s];
-        acc = fmaf(v, v, acc);
-      }
+#pragma unroll
+      for (int wp = 0; wp < NT / 32; ++wp) acc += esum[(wp * H + c) * S + s];
       e[c] = acc / float(F_DOWN);
       yg[c] = tdb[c] + tdw[c] * e01[c * S + s] + tdw[H + c] * e01[(H + c) * S + s] + tdw[2 * H + c] * e[c];
     }
@@ -580,90 +735,128 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
   }
 }
 
-// Residual TCN block on (16, 33), one stage: out = PReLU(pw3 @ PReLU(dw(
-// x_{t-2d}, x_{t-d}, h)) + b + x) with h = PReLU(pw1 @ x + b), all in the
-// item's registers (in == out allowed).  It writes the ring's new frame h
-// where it read tap 0.
-template <typename T, int S, class IO>
-__device__ void tcn(const Wts& w, const TcnW& o, const IO& io, int r, const float* in, float* out,
-                    int b0, int B) {
-  const Item I = item33();
-  const int f = I.it / S, s = I.it % S, b = b0 + s;
-  const bool live = I.valid && b < B;
+// A TCN's two ring taps x_{t-2d}, x_{t-d} at the lane's tile values, as
+// stored; a row or stream past the layer reads a real one, unused.  The
+// forward loads a block's taps while the block before runs, so that their
+// latency, the largest cost of a block, overlaps it.
+template <typename T>
+struct TcnTaps {
+  T v0[16], v1[16];
+};
+template <typename T, class IO>
+__device__ __forceinline__ void load_taps(TcnTaps<T>& tp, const IO& io, int r, int b0, int B) {
+  const Lane L;
+  const int b = b0 + L.g < B ? b0 + L.g : B - 1;
   const T* t0 = io.t0(r);
   const T* t1 = io.t1(r);
-  float x0[C], x1[C], x[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const size_t gi = (size_t)(c * F_DOWN + f) * B + b;
-    x0[c] = live ? to_f(t0[gi]) : 0.f;
-    x1[c] = live ? to_f(t1[gi]) : 0.f;
+  for (int j = 0; j < 16; ++j) {
+    const size_t gi = (size_t)(L.c<true>(j) * F_DOWN + clamp0(L.f(j), F_DOWN)) * B + b;
+    tp.v0[j] = t0[gi];
+    tp.v1[j] = t1[gi];
   }
-#pragma unroll
-  for (int c = 0; c < C; ++c) x[c] = in[(c * F_DOWN + f) * S + s];
-  float h[C];
+}
+
+// Residual TCN block on (16, 33), one stage in registers on tensor cores:
+// x = PReLU(pw3 @ PReLU(dw(x_{t-2d}, x_{t-d}, h)) + b + x) with
+// h = PReLU(pw1 @ x + b), x the warp's pair-order tile of the trunk (its
+// rows past the layer unused), the taps loaded a block ahead.  It writes the
+// ring's new frame h where it read tap 0, each value by the thread that read it.
+template <typename T, class IO>
+__device__ void tcn(const Wts& w, const TcnW& o, const IO& io, int r, float (&x)[16],
+                    const TcnTaps<T>& tp, int b0, int B) {
+  const Lane L;
+  const int b = b0 + L.g;
+  float h[16];
   zero(h);
-  mix<C, C>(h, w(o.pw1_w), x);
+  mix_tc(h, x, MixW<C, true>(w(o.pw1_w), L));
   {
     const float* b1 = w(o.pw1_b);
     const float a1 = *w(o.a1);
-#pragma unroll
-    for (int c = 0; c < C; ++c) h[c] = prelu(h[c] + b1[c], a1);
-  }
-  if (live) {
     T* fr = io.out(r);
 #pragma unroll
-    for (int c = 0; c < C; ++c) fr[(size_t)(c * F_DOWN + f) * B + b] = from_f<T>(h[c]);
+    for (int j = 0; j < 16; ++j) {
+      h[j] = prelu(h[j] + b1[L.c<true>(j)], a1);
+      if (b < B && L.f(j) < F_DOWN)
+        fr[(size_t)(L.c<true>(j) * F_DOWN + L.f(j)) * B + b] = from_f<T>(h[j]);
+    }
   }
   {
     const float* dww = w(o.dw_w);
     const float* bdw = w(o.dw_b);
     const float a2 = *w(o.a2);
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      h[c] = prelu(dww[c] * x0[c] + dww[C + c] * x1[c] + dww[2 * C + c] * h[c] + bdw[c], a2);
+    for (int j = 0; j < 16; ++j) {
+      const int c = L.c<true>(j);
+      h[j] = prelu(dww[c] * to_f(tp.v0[j]) + dww[C + c] * to_f(tp.v1[j]) + dww[2 * C + c] * h[j]
+                   + bdw[c], a2);
+    }
   }
-  float acc[C];
+  float acc[16];
   zero(acc);
-  mix<C, C>(acc, w(o.pw3_w), h);
+  mix_tc(acc, h, MixW<C, true>(w(o.pw3_w), L));
   const float* b3 = w(o.pw3_b);
   const float a3 = *w(o.a3);
-  if (I.valid) {
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      out[(c * F_DOWN + f) * S + s] = prelu(acc[c] + b3[c] + x[c], a3);
+  for (int j = 0; j < 16; ++j) x[j] = prelu(acc[j] + b3[L.c<true>(j)] + x[j], a3);
+}
+
+// de3: (1,5) transposed freq conv, stride 2, pad 2 (zero-stuffed input), over
+// x = in + skip (16, 33) -> (16, 65), bias + PReLU, on tensor cores:
+// out[2p] = W0 x[p-1] + W2 x[p] + W4 x[p+1] and out[2p+1] = W1 x[p] +
+// W3 x[p+1], x zero outside 0..32, over the warp's rows p.  w is (5, 16, 16).
+template <int S>
+__device__ void de3(const float* w, const float* bias, float a, const float* in,
+                    const float* skip, float* out) {
+  const Lane L;
+  const int s = L.g;
+  float even[16], odd[16];
+  zero(even);
+  zero(odd);
+#pragma unroll
+  for (int d = -1; d <= 1; ++d) {
+    float x[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int p = L.f(j) + d, i = (L.c<false>(j) * F_DOWN + clamp0(p, F_DOWN)) * S + s;
+      const float v = in[i] + skip[i];
+      x[j] = (p >= 0 && p < F_DOWN) ? v : 0.f;
+    }
+    mix_tc(even, x, MixW<C, false>(w + (2 + 2 * d) * C * C, L));
+    if (d >= 0) mix_tc(odd, x, MixW<C, false>(w + (1 + 2 * d) * C * C, L));
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int co = L.c<true>(j), p = L.f(j);
+    if (p < F_DOWN) out[(co * F_MID + 2 * p) * S + s] = prelu(even[j] + bias[co], a);
+    if (p < F_DOWN - 1) out[(co * F_MID + 2 * p + 1) * S + s] = prelu(odd[j] + bias[co], a);
   }
 }
 
-// (1,5) transposed freq conv, stride 2, pad 2 (zero-stuffed input) over
-// in + skip (16, Fin) -> (CO, 2 Fin - 1) with bias; PReLU (de3) or tanh
-// (de4, LAST) after.  w is (5, CO, 16).
-template <int S, int CO, bool LAST>
-__device__ void deconv5_up2(const float* w, const float* bias, float a, const float* in,
-                            const float* skip, int Fin, float* out) {
-  const int Fout = 2 * Fin - 1;
-  for (int it = threadIdx.x; it < Fout * S; it += NT) {
+// de4: (1,5) transposed freq conv, stride 2, pad 2 (zero-stuffed input) over
+// in + skip (16, 65) -> the mask (2, 129), bias + tanh.  w is (5, 2, 16).
+template <int S>
+__device__ void de4(const float* w, const float* bias, const float* in, const float* skip,
+                    float* out) {
+  for (int it = threadIdx.x; it < F_ERB * S; it += NT) {
     const int fo = it / S, s = it % S;
-    float acc[CO];
+    float acc[2];
     zero(acc);
 #pragma unroll 1
     for (int k = 0; k < 5; ++k) {
       const int m = fo + k - 2;  // index into the zero-stuffed input
-      if (m < 0 || (m & 1) || (m >> 1) >= Fin) continue;
+      if (m < 0 || (m & 1) || (m >> 1) >= F_MID) continue;
       const int j = m >> 1;
       float x[C];
 #pragma unroll
       for (int ci = 0; ci < C; ++ci) {
-        const int i = (ci * Fin + j) * S + s;
+        const int i = (ci * F_MID + j) * S + s;
         x[ci] = in[i] + skip[i];
       }
-      mix<C, CO>(acc, w + k * CO * C, x);
+      mix<C, 2>(acc, w + k * 2 * C, x);
     }
 #pragma unroll
-    for (int co = 0; co < CO; ++co) {
-      const float v = acc[co] + bias[co];
-      out[(co * Fout + fo) * S + s] = LAST ? tanhf(v) : prelu(v, a);
-    }
+    for (int co = 0; co < 2; ++co) out[(co * F_ERB + fo) * S + s] = tanhf(acc[co] + bias[co]);
   }
 }
 
@@ -736,11 +929,30 @@ __device__ void forward(const float* __restrict__ W, const Plan& p, const T* __r
                         sm + M::skip(2 + i), sm, b0, B);
   }
 
-  // two stacks of four dilated TCNs (d = 1, 2, 4, 8); the trunk lives in TRUNK
+  // two stacks of four dilated TCNs (d = 1, 2, 4, 8); each warp keeps its
+  // items of the trunk in registers from skip 4 to TRUNK
+  float xt[16];
+  TcnTaps<T> cur, nxt;
 #pragma unroll 1
   for (int i = 0; i < 8; ++i) {
     w = advance<S>(W, p, sm, 5 + i);
-    tcn<T, S>(w, o.tcn[i], io, TCN + i, i == 0 ? sm + M::skip(4) : x, x, b0, B);
+    if (i == 0) {
+      load_taps(cur, io, TCN, b0, B);
+      const Lane L;
+      const float* x4 = sm + M::skip(4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        xt[j] = x4[(L.c<true>(j) * F_DOWN + clamp0(L.f(j), F_DOWN)) * S + L.g];
+    }
+    if (i < 7) load_taps(nxt, io, TCN + i + 1, b0, B);
+    tcn<T>(w, o.tcn[i], io, TCN + i, xt, cur, b0, B);
+    cur = nxt;
+  }
+  {
+    const Lane L;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (L.f(j) < F_DOWN) x[(L.c<true>(j) * F_DOWN + L.f(j)) * S + L.g] = xt[j];
   }
 
   // decoder: three GTConvs over trunk + skips 4, 3, 2, then the transposed
@@ -753,10 +965,10 @@ __device__ void forward(const float* __restrict__ W, const Plan& p, const T* __r
   }
   float* d3 = sm + M::WORK;  // (16, 65)
   w = advance<S>(W, p, sm, 16);
-  deconv5_up2<S, C, false>(w(o.de3.w), w(o.de3.b), *w(o.de3.a), x, sm + M::skip(1), F_DOWN, d3);
+  de3<S>(w(o.de3.w), w(o.de3.b), *w(o.de3.a), x, sm + M::skip(1), d3);
   float* m = x;  // mask (2, 129)
   w = advance<S>(W, p, sm, 17);
-  deconv5_up2<S, 2, true>(w(o.de4_w), w(o.de4_b), 0.f, d3, sm + M::skip(0), F_MID, m);
+  de4<S>(w(o.de4_w), w(o.de4_b), d3, sm + M::skip(0), m);
   __syncthreads();
   apply_mask<T, S>(w(o.bs_w), m, spec, out, b0, B);
 }

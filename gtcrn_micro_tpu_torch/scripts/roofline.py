@@ -18,9 +18,10 @@ round trip, median of 3):
      in the family has kT=3), r/w the O(1) DSP carry, and streams the audio
      hop in/out; weights amortise over the batch.
    - *whole-state r+w*: a naive fused kernel that touches every ring slot.
-4. **The bound by operations** of the fused forward (``utils/roofline.py``:
-   its multiply-adds at the float32 peak, its bytes at the memory peak).
-   On the H100 kernels B1 and B2 are bound by operations, not bytes, so
+4. **The bound** of the fused forward (``utils/roofline.py``: its bytes at
+   the memory peak; its multiply-adds at the peaks of the units that do
+   them, the tensor-core mixes as three TF32 products, the rest at the
+   float32 peak).  On the H100 kernels B1 and B2 are bound by bytes, so
    this is the floor the served step is held to.
 
     python -m gtcrn_micro_tpu_torch.scripts.roofline [--batch 8192] [--bw_gb GB/s]
@@ -93,7 +94,12 @@ def main(argv=None) -> dict:
     from gtcrn_micro_tpu_torch.bench import measure_step_latency
     from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
     from gtcrn_micro_tpu_torch.ops.fused_step import LayoutGTCRNMicro, kernel_weights, unpack
-    from gtcrn_micro_tpu_torch.utils.roofline import H100_F32_FLOPS, fused_step_bound
+    from gtcrn_micro_tpu_torch.utils.roofline import (
+        H100_F32_FLOPS,
+        H100_HBM_BYTES,
+        H100_TF32_FLOPS,
+        fused_step_bound,
+    )
 
     dev = resolve_device(ns.device)
     params = init_params(torch.Generator().manual_seed(0), device=dev)
@@ -129,7 +135,8 @@ def main(argv=None) -> dict:
     op_ms, by, flops, nbytes = fused_step_bound(unpack(plain.weights), ns.batch, 2, kw_floats)
     print(f"fused forward bound @ {ns.batch}: {flops / 1e9:.3f} GFLOP f32, "
           f"{nbytes / 1e6:.1f} MB -> {op_ms:.4f} ms by {by} (H100 SXM peaks, "
-          f"{H100_F32_FLOPS / 1e12:.0f} TFLOP/s f32); step is {med * 1e3 / op_ms:.1f}x it",
+          f"{H100_F32_FLOPS / 1e12:.0f} TFLOP/s f32, {H100_TF32_FLOPS / 1e12:.1f} TFLOP/s "
+          f"TF32, {H100_HBM_BYTES / 1e12:.2f} TB/s); step is {med * 1e3 / op_ms:.1f}x it",
           flush=True)
     return {"bw_gb": bw, "step_s": med, "floors": floors, "op_bound_ms": op_ms,
             "bound_by": by, "launches": getattr(model, "launches", None)}

@@ -1,8 +1,10 @@
 // The forward of csrc/gtcrn_forward.cuh run on the host, CTA by CTA, with
-// one std::thread per CUDA thread; the C entries mirror those of kernels B1
-// (fused_step.cu) and B2 (fused_grid.cu).  Shared memory is filled with NaN
-// before each CTA, so a read of a value no thread has written shows up in
-// the output.  Built and driven by tests/test_torch_kernel_host.py.
+// one std::thread per CUDA thread and an EmuWarp (gtcrn_mma.cuh) per warp;
+// the C entries mirror those of kernels B1 (fused_step.cu) and B2
+// (fused_grid.cu), host_mix runs one warp's channel mix alone and
+// host_mma_products counts the warps' mma products.  Shared memory is filled
+// with NaN before each CTA, so a read of a value no thread has written shows
+// up in the output.  Built and driven by tests/test_torch_kernel_host.py.
 #include <math.h>
 #include <stdlib.h>
 
@@ -23,6 +25,7 @@ static void run(const float* W, const Plan& p, const T* spec, T* out, const IO& 
   for (int blk = 0; blk < (B + TILE - 1) / TILE; ++blk) {
     for (size_t i = 0; i < n; ++i) sm[i] = NAN;
     std::barrier<> cta(NT);
+    std::vector<EmuWarp> warps(NT / 32);
     std::vector<std::thread> threads;
     for (int t = 0; t < NT; ++t)
       threads.emplace_back([&, t, blk] {
@@ -30,6 +33,7 @@ static void run(const float* W, const Plan& p, const T* spec, T* out, const IO& 
         blockIdx = {(unsigned)blk, 0, 0};
         blockDim = {(unsigned)NT, 1, 1};
         emu_cta_barrier = &cta;
+        emu_warp = &warps[t / 32];
         forward<T>(W, p, spec, out, io, blk * TILE, B, sm);
       });
     for (auto& th : threads) th.join();
@@ -70,6 +74,54 @@ extern "C" int host_fused_step_b1(int dtype, const float* W, const int* offs, in
   if (dtype == 0) go(0.f); else go(__nv_bfloat16());
   return 0;
 }
+
+// One warp's mix of 16 channels: y = W x over 32 items, W (16, 16) row-major,
+// x and y (16, 32) channel-major, item 16 mt + 8 h + g at row h of m-tile mt
+// and lane g; x read as a tile in split (pair = 0) or pair order, y written
+// from the pair-order tile.  products = 3 runs mix_tc; 1 runs the same
+// fragments with the big TF32 parts alone (one TF32 product).
+template <bool PAIR>
+static void mix_warp(const float* w, const float* x, float* y, int products) {
+  const Lane L;
+  float t[16], acc[16];
+  for (int j = 0; j < 16; ++j) {
+    t[j] = x[L.c<PAIR>(j) * 32 + L.f(j) * TILE + L.g];
+    acc[j] = 0.f;
+  }
+  const MixW<C, PAIR> m(w, L);
+  if (products == 3) {
+    mix_tc(acc, t, m);
+  } else {
+    for (int mt = 0; mt < 2; ++mt)
+      for (int kb = 0; kb < 2; ++kb) {
+        unsigned big[4], small[4];
+        const int at[4] = {0, 2, 1, 3};
+        for (int k = 0; k < 4; ++k) split(t[8 * mt + 4 * kb + at[k]], big[k], small[k]);
+        for (int nt = 0; nt < 2; ++nt) {
+          float(&d)[4] = *reinterpret_cast<float(*)[4]>(&acc[8 * mt + 4 * nt]);
+          mma_tf32(d, big, m.big[nt][kb]);
+        }
+      }
+  }
+  for (int j = 0; j < 16; ++j) y[L.c<true>(j) * 32 + L.f(j) * TILE + L.g] = acc[j];
+}
+
+extern "C" int host_mix(const float* w, const float* x, float* y, int pair, int products) {
+  if (products != 1 && products != 3) return 1;
+  EmuWarp warp;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < 32; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = {(unsigned)t, 0, 0};
+      emu_warp = &warp;
+      if (pair) mix_warp<true>(w, x, y, products); else mix_warp<false>(w, x, y, products);
+    });
+  for (auto& th : threads) th.join();
+  return 0;
+}
+
+// The warp products (mma_tf32 calls of a warp) issued since the last call.
+extern "C" unsigned long long host_mma_products() { return emu_mma_products.exchange(0); }
 
 // The runtime calls of prepare(): a current device, and a count per device
 // of the shared-memory attributes set.

@@ -4,8 +4,10 @@ and held against the plain PyTorch version.
 The header is compiled by the host C++ compiler against the stand-ins in
 tests/kernel_host/ (one std::thread per CUDA thread, a std::barrier per
 __syncthreads, a cp.async copy whose destination reads as NaN until the
-issuing thread's next wait, shared memory filled with NaN before each CTA),
-with the two C entries of kernels B1 and B2.  So the kernels' indexing,
+issuing thread's next wait, shared memory filled with NaN before each CTA,
+TF32 rounding and a warp's mma.sync product through a barrier of its 32
+threads), with the two C entries of kernels B1 and B2 and one warp's
+channel mix (host_mix).  So the kernels' indexing,
 staging, barriers, ring contract and weight-layout checks, and the
 per-device shared-memory attribute of prepare(), are tested here without a
 GPU; what nvcc and the card add (their compiler, FMA contraction,
@@ -59,6 +61,8 @@ def host_lib(tmp_path_factory):
                                        ctypes.POINTER(_P), _I, _I]
     lib.host_fused_step_b1.argtypes = [_I, _P, ctypes.POINTER(_I), _I, _P, _P,
                                        ctypes.POINTER(_P), ctypes.POINTER(_P), _I]
+    lib.host_mix.argtypes = [_P, _P, _P, _I, _I]
+    lib.host_mma_products.restype = ctypes.c_ulonglong
     return lib
 
 
@@ -126,6 +130,70 @@ def test_host_forward_bf16_within_one_step(host_lib, params, kernel):
         ref = ps[name].float()
         assert (ks[name].float() - ref).abs().max().item() <= 2 ** -7 * ref.abs().max().item(), name
 
+
+
+def _host_mix(lib, w, x, pair, products):
+    y = torch.empty_like(x)
+    assert lib.host_mix(w.data_ptr(), x.data_ptr(), y.data_ptr(), pair, products) == 0
+    return y
+
+
+def _mix_rel_err(lib, pair, products):
+    """A warp's 16x16 mix of 32 items (seeded weights and activations, float32)
+    against the float64 product: Frobenius norm of the error over the
+    product's."""
+    g = torch.Generator().manual_seed(5)
+    w, x = torch.randn((16, 16), generator=g), torch.randn((16, 32), generator=g)
+    ref = w.double() @ x.double()
+    y = _host_mix(lib, w, x, pair, products)
+    return ((y.double() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize("order", ["split", "pair"])
+def test_host_mix_three_tf32_products_are_float32(host_lib, order):
+    """The tensor-core mix (mix_tc: operands split into TF32 big and small
+    parts, three mma products) is within 2^-20 of the float64 product, with
+    the input tile in either order."""
+    assert _mix_rel_err(host_lib, order == "pair", 3) <= 2 ** -20
+
+
+def test_host_mix_one_tf32_product_misses_the_bound(host_lib):
+    """The same fragments with the big parts alone (one TF32 product) miss
+    2^-20 by far, so dropping the split would fail the test above."""
+    assert _mix_rel_err(host_lib, False, 1) > 2 ** -14
+
+
+# The mixes kernels B1 and B2 issue on mma, per layer: (mixes a warp issues a
+# frame, the (row, tap) pairs of a stream-frame they compute, output channels).
+# A warp's mix covers 4 rows of 8 streams and every tap, so it issues rows
+# past F = 33 and taps on the zero padding too.
+TC_MIXES = {
+    "en1": (5, 161, 16),  # (1,5) stride 2: 5 taps, 161 inside 65 bins
+    "tcn_pw1_pw3": (8 * 2, 8 * 2 * 33, 16),
+    "dec_3x3": (3 * 9, 3 * 3 * 97, 16),  # 3 frames x 3 freq taps, 97 inside
+    "gtconv_pw2": (6, 6 * 33, 8),
+    "de3": (5, 161, 16),  # (1,5) transposed, stride 2: 3 even + 2 odd taps
+}
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_host_forward_issues_the_tensor_core_mixes(host_lib, params, kernel):
+    """One frame of 8 streams (one CTA of 9 warps) issues on mma exactly the
+    mixes of TC_MIXES, three TF32 products of each m16n8k8 tile, and
+    utils/roofline.tc_macs_per_stream counts the same mixes' multiply-adds
+    inside the layers: a mix moved to or from the tensor cores fails here
+    until both are brought up to date."""
+    from gtcrn_micro_tpu_torch.utils.roofline import tc_macs_per_stream
+
+    plain = LayoutGTCRNMicro(params, device="cpu")
+    kw = kernel_weights(plain.weights)
+    x = torch.randn((8, 257, 1, 2), generator=torch.Generator().manual_seed(3)) * 0.2
+    host_lib.host_mma_products()
+    _host_step(host_lib, kernel, kw, plain.init_state(8), x)
+    # a mix of CO outputs: 2 m16 tiles x CO / 8 n8 tiles x 2 k8 steps x 3 products
+    assert host_lib.host_mma_products() == 9 * sum(
+        n * 2 * (co // 8) * 2 * 3 for n, _pairs, co in TC_MIXES.values())
+    assert tc_macs_per_stream() == sum(pairs * 16 * co for _n, pairs, co in TC_MIXES.values())
 
 
 BAD_LAYOUTS = ["entry_outside_its_group", "sfe_in_a_tcn_group", "misaligned_entry",

@@ -121,3 +121,13 @@ def test_kernel_updates_rings_in_place(cuda, backend):
     for name, *_ in RING_DEFS:
         assert st[name].data_ptr() == ptrs[name], name
         assert not torch.equal(st[name], before[name]), name
+
+
+@pytest.mark.parametrize("lib", ["fused_step", "fused_grid"])
+def test_kernel_attrs_no_spills(cuda, lib):
+    """Both instantiations of the kernel use no local memory (no spills, no
+    stack frame)."""
+    from gtcrn_micro_tpu_torch.ops import _build
+
+    for dt, a in _build.kernel_attrs(lib).items():
+        assert a["local_bytes"] == 0, dt
