@@ -181,6 +181,18 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               seam restored after), and ``leak_probe`` for 100 steps in each
               mode, cut to fit the run (a ``[rest]`` line lists the cuts).
 
+14. gtcrn  -- GTCRN on the layered path (``models/gtcrn.py``: cuDNN GRUs and
+              convolutions, no kernel of this repo) against its plain
+              reference (``benchmark/reference/gtcrn_dpgrnn.py``, every GRU
+              a loop of its cell), float32 with TF32 off, seeded weights:
+              ``apply`` at B = 8 over 512 frames (relative error <= 1e-4),
+              bit-identical with the global TF32 flags on, its time; the
+              layered audio server ``CohortServer(mode="audio")``, 1 cohort
+              x 1,024 streams x 64 steps from zero state, against the
+              reference's forward over the same audio (relative error <=
+              1e-4; a silent slot exactly 0), its step timed on the host
+              clock (steps 16-63) and by CUDA events.
+
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2020,6 +2032,67 @@ def rest_phase(torch, dev, card, trained: str) -> dict:
     return launches
 
 
+def gtcrn_phase(torch, dev, card) -> None:
+    """Phase 14 (the module docstring): GTCRN offline and served against its
+    plain reference."""
+    from benchmark import inputs
+    from benchmark.reference import gtcrn_dpgrnn as ref
+    from gtcrn_micro_tpu_torch.serve import CohortServer, make_backend
+
+    t0 = time.perf_counter()
+    P = ref.init_params(2_024_001, dev)
+    model = make_backend("layered", ref.nest(P), torch.float32, dev, model="gtcrn")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    spec = ref.dsp.stft(inputs.speech_like(8, 511 * 256, gen, dev), ref.dsp.sqrt_hann(dev))
+    with torch.no_grad(), ref.no_tf32():
+        want = ref.forward(P, spec)
+        got = model.apply(spec)
+    rel = float((got - want).norm() / want.norm())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            same = torch.equal(model.apply(spec), got)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        apply_ms = cuda_ms(torch, lambda: model.apply(spec), n=5, warm=1)
+    say("gtcrn", f"apply B=8 x {spec.shape[2]} frames: rel {rel:.3e} against the reference, "
+                 f"{apply_ms:.2f} ms (CUDA events); bit-identical with TF32 flags on: {same}")
+    if not rel <= 1e-4 or not same:
+        fail(f"gtcrn apply: rel {rel:.3e}, TF32-flag identical {same}")
+
+    B, hops = 1024, 64
+    audio = inputs.speech_like(B, hops * 256, gen, dev)
+    audio[B // 2] = 0.0
+    srv = CohortServer(model, None, batch=B, n_cohorts=1, dtype=torch.float32, mode="audio",
+                       device=dev)
+    outs, times = [], []
+    with ref.no_tf32():
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for n in range(hops):
+            if n == 16:
+                e0.record()
+            t = time.perf_counter()
+            outs.append(srv.step(0, audio[:, 256 * n:256 * (n + 1)]))
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t)
+        e1.record()
+        e1.synchronize()
+        served = torch.cat(outs, dim=1)
+        want = ref.stream_enhance(P, audio)
+    rel_s = float((served - want).norm() / want.norm())
+    silent = float(served[B // 2].abs().max())
+    step_ms = statistics.median(times[16:]) * 1e3
+    event_ms = e0.elapsed_time(e1) / (hops - 16)
+    say("gtcrn", f"served f32 1 x {B} streams x {hops} steps: rel {rel_s:.3e} against the "
+                 f"reference's forward over the same audio, silent slot max {silent}; step "
+                 f"{step_ms:.3f} ms median host clock (steps 16-63, synchronized), "
+                 f"{event_ms:.3f} ms by CUDA events; {card}; "
+                 f"{time.perf_counter() - t0:.1f} s")
+    if not rel_s <= 1e-4 or silent != 0.0:
+        fail(f"gtcrn served: rel {rel_s:.3e}, silent slot {silent}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
@@ -2337,6 +2410,9 @@ def main() -> None:
 
     # -- 13. rest: the CLIs, smoke_all, the reference-scale traversal, probes --
     rest_launches = rest_phase(torch, dev, card, trained)
+
+    # -- 14. gtcrn: GTCRN offline and served against its plain reference ------
+    gtcrn_phase(torch, dev, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "bench_launches": bench_launches[name],

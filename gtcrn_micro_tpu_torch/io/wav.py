@@ -11,8 +11,75 @@ from __future__ import annotations
 import os
 import struct
 import wave as _wave
+from typing import NamedTuple
 
 import numpy as np
+
+
+def _header(f, path: str) -> tuple[int, int, int, int, int, int, int]:
+    """The RIFF/WAVE header of the open file ``f``: (audio format, channels,
+    sample rate, block align, bits, data offset, data bytes)."""
+    header = f.read(12)
+    if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
+        raise ValueError(f"not a RIFF/WAVE file: {path}")
+    fmt = None
+    data_off = None
+    data_size = None
+    while True:
+        chunk = f.read(8)
+        if len(chunk) < 8:
+            break
+        cid, csize = struct.unpack("<4sI", chunk)
+        if cid == b"fmt ":
+            fmt = f.read(csize)
+            if csize % 2:
+                f.read(1)
+        elif cid == b"data":
+            data_off = f.tell()
+            data_size = csize
+            f.seek(csize + (csize % 2), 1)
+        else:
+            f.seek(csize + (csize % 2), 1)
+    if fmt is None or data_off is None:
+        raise ValueError(f"missing fmt/data chunk: {path}")
+    audio_fmt, n_ch, fs, _byte_rate, block_align, bits = struct.unpack("<HHIIHH", fmt[:16])
+    if audio_fmt == 0xFFFE and len(fmt) >= 40:  # WAVE_FORMAT_EXTENSIBLE
+        audio_fmt = struct.unpack("<H", fmt[24:26])[0]
+    return audio_fmt, n_ch, fs, block_align, bits, data_off, data_size
+
+
+class WavInfo(NamedTuple):
+    """What a wav file's header says of it (:func:`wav_info`)."""
+
+    frames: int
+    fs: int
+    channels: int
+    pcm16: bool  # samples are 16-bit PCM
+    data_offset: int
+
+
+def wav_info(path: str) -> WavInfo:
+    """The frames, sample rate, channels and sample format of a wav file,
+    from its header alone."""
+    with open(path, "rb") as f:
+        audio_fmt, n_ch, fs, block_align, bits, data_off, data_size = _header(f, path)
+    return WavInfo(data_size // block_align, fs, n_ch, audio_fmt == 1 and bits == 16, data_off)
+
+
+def read_pcm16_into(path: str, info: WavInfo, out: np.ndarray) -> None:
+    """Read the samples of a mono 16-bit PCM wav (``info`` its
+    :func:`wav_info`) straight into ``out``, a contiguous int16 array of
+    ``info.frames`` samples: the raw samples, as ``read_wav(path,
+    dtype=np.int16)`` gives them, without an array of their own."""
+    if not (info.pcm16 and info.channels == 1) or out.dtype != np.dtype("<i2") \
+            or len(out) != info.frames:
+        raise ValueError(f"{path}: {info} does not fit an int16 array of {len(out)} samples")
+    with open(path, "rb") as f:
+        f.seek(info.data_offset)
+        got = f.readinto(memoryview(out).cast("B"))
+    if got < out.nbytes:
+        raise ValueError(f"truncated wav: {path} header promises {info.frames} frames, "
+                         f"file holds {got // 2}")
 
 
 def read_wav(
@@ -32,40 +99,7 @@ def read_wav(
     and the scale is a power of two).
     """
     with open(path, "rb") as f:
-        header = f.read(12)
-        if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
-            raise ValueError(f"not a RIFF/WAVE file: {path}")
-        fmt = None
-        data_off = None
-        data_size = None
-        while True:
-            chunk = f.read(8)
-            if len(chunk) < 8:
-                break
-            cid, csize = struct.unpack("<4sI", chunk)
-            if cid == b"fmt ":
-                fmt = f.read(csize)
-                if csize % 2:
-                    f.read(1)
-            elif cid == b"data":
-                data_off = f.tell()
-                data_size = csize
-                f.seek(csize + (csize % 2), 1)
-            else:
-                f.seek(csize + (csize % 2), 1)
-        if fmt is None or data_off is None:
-            raise ValueError(f"missing fmt/data chunk: {path}")
-        (
-            audio_fmt,
-            n_ch,
-            fs,
-            _byte_rate,
-            block_align,
-            bits,
-        ) = struct.unpack("<HHIIHH", fmt[:16])
-        if audio_fmt == 0xFFFE and len(fmt) >= 40:  # WAVE_FORMAT_EXTENSIBLE
-            audio_fmt = struct.unpack("<H", fmt[24:26])[0]
-
+        audio_fmt, n_ch, fs, block_align, bits, data_off, data_size = _header(f, path)
         n_frames = data_size // block_align
         stop_f = n_frames if stop is None else min(stop, n_frames)
         start_f = min(start, stop_f)
@@ -94,7 +128,8 @@ def read_wav(
         return x.astype(np.int16), fs
 
     if audio_fmt == 1 and bits == 16:
-        x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+        x = np.frombuffer(raw, dtype="<i2").astype(np.float32)
+        x /= 32768.0  # in place: no second array of the clip's length
     elif audio_fmt == 1 and bits == 32:
         x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
     elif audio_fmt == 1 and bits == 24:
@@ -115,7 +150,7 @@ def read_wav(
 
     if n_ch > 1:
         x = x.reshape(-1, n_ch)
-    return x.astype(dtype), fs
+    return x.astype(dtype, copy=False), fs
 
 
 def write_wav(path: str, data: np.ndarray, fs: int) -> None:

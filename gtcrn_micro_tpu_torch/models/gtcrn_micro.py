@@ -220,14 +220,22 @@ class GTCRNMicro(nn.Module):
         c = config
         self._erb = ErbBands(c.erb_subband_1, c.erb_subband_2, c.n_fft)
         self.erb = _Frozen(self._erb.init_params("cpu"))
+        self._build(c)
+        name_paths(self)
+        self.to(dev, dtype)
+        self.config, self.dtype, self.device = c, dtype, dev
+
+    def _build(self, c) -> None:
+        """The layers between the ERB filters and the mask."""
         self.sfe = SFELite(3)
         self.encoder = Encoder()
         self.gtcn1 = GTCN(c.channels)
         self.gtcn2 = GTCN(c.channels)
         self.decoder = Decoder()
-        name_paths(self)
-        self.to(dev, dtype)
-        self.config, self.dtype, self.device = c, dtype, dev
+
+    def _middle(self, ctx: Ctx, feat):
+        """The bottleneck between the encoder and the decoder, (B, T, 33, C)."""
+        return self.gtcn2(ctx, self.gtcn1(ctx, feat))
 
     @classmethod
     def from_params(cls, params: dict, dtype=torch.float32, device=None,
@@ -261,7 +269,7 @@ class GTCRNMicro(nn.Module):
         feat = torch.stack([self._erb.bm(erb, c) for c in (mag, real, imag)], dim=-1)
         feat = self.sfe(ctx, feat)
         feat, en_outs = self.encoder(ctx, feat)
-        feat = self.gtcn2(ctx, self.gtcn1(ctx, feat))
+        feat = self._middle(ctx, feat)
         m = self.decoder(ctx, feat, en_outs)  # (B, T, 129, 2)
         m_r, m_i = (self._erb.bs(erb, m[..., i]) for i in (0, 1))
         out = torch.stack([real * m_r - imag * m_i, imag * m_r + real * m_i], dim=-1)
@@ -305,9 +313,15 @@ class GTCRNMicro(nn.Module):
                                 dtype=store if k.endswith("/ring") else dtype)
                  for k, shape in ctx.new_state.items()}
         if ring:
-            # every ring length divides 16, so one mod-16 counter indexes all
+            # one counter, modulo a multiple of every ring length, indexes all
             state["step"] = 0
         return state
+
+    @staticmethod
+    def _next_step(t, T: int):
+        """The ring counter after a chunk of T frames: every ring length of
+        GTCRN-Micro divides 16, so the counter runs modulo 16."""
+        return (t + T) & 15
 
     def step(self, params, state: dict, spec, quant=None):
         """One streaming step over a chunk: spec (B, 257, T, 2) -> (enhanced
@@ -326,7 +340,7 @@ class GTCRNMicro(nn.Module):
         with torch.no_grad(), exact_f32():
             out = self(spec, ctx)
         if ring:
-            state["step"] = (state["step"] + T) & 15
+            state["step"] = self._next_step(state["step"], T)
         return out, state
 
     def scan_frames(self, params, state: dict, spec):

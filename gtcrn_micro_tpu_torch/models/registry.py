@@ -34,3 +34,13 @@ def _gtcrn_micro(n_fft: int = 512, hop_len: int = 256, win_len: int = 512,
 
     return GTCRNMicro(GTCRNMicroConfig(n_fft=n_fft, hop_len=hop_len, win_len=win_len, **kw),
                       dtype=dtype, device=device)
+
+
+@register_model("gtcrn")
+def _gtcrn(n_fft: int = 512, hop_len: int = 256, win_len: int = 512,
+           dtype=torch.float32, device=None, **kw):
+    from gtcrn_micro_tpu_torch.models.gtcrn import GTCRN
+    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicroConfig
+
+    return GTCRN(GTCRNMicroConfig(n_fft=n_fft, hop_len=hop_len, win_len=win_len, **kw),
+                 dtype=dtype, device=device)

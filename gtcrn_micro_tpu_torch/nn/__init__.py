@@ -1,9 +1,13 @@
-"""Layers and blocks of the layered GTCRN-Micro model (the JAX package's
-``nn``)."""
+"""Layers and blocks of the layered GTCRN-Micro and GTCRN models (the JAX
+package's ``nn``, and GTCRN's recurrent layers)."""
 
 from gtcrn_micro_tpu_torch.nn.blocks import (
+    DPGRNN,
+    GRNN,
     GTCN,
+    SFE,
     TCN,
+    TRA,
     ConvBlock,
     Decoder,
     Encoder,
@@ -11,9 +15,11 @@ from gtcrn_micro_tpu_torch.nn.blocks import (
     SFELite,
 )
 from gtcrn_micro_tpu_torch.nn.core import (
+    GRU,
     BatchNorm,
     CausalConv2d,
     Ctx,
+    LayerNorm,
     Pointwise,
     PReLU,
     TRALite,
@@ -21,7 +27,7 @@ from gtcrn_micro_tpu_torch.nn.core import (
 )
 
 __all__ = [
-    "GTCN", "TCN", "BatchNorm", "CausalConv2d", "ConvBlock", "Ctx", "Decoder",
-    "Encoder", "GTConvBlock", "PReLU", "Pointwise", "SFELite", "TRALite",
-    "exact_f32",
+    "DPGRNN", "GRNN", "GRU", "GTCN", "SFE", "TCN", "TRA", "BatchNorm", "CausalConv2d",
+    "ConvBlock", "Ctx", "Decoder", "Encoder", "GTConvBlock", "LayerNorm", "PReLU",
+    "Pointwise", "SFELite", "TRALite", "exact_f32",
 ]

@@ -213,22 +213,28 @@ def _window(ctx: Ctx, cache, x, d: int, taps: int):
     Ring with ``d >= T``: tap ``j`` is the T-frame slab at ring slot
     ``(t + j d) mod L``, and ``xin = [slab_0 | ... | x]`` with dilation T;
     the chunk overwrites the oldest slab (slot ``t mod L``).  The step
-    counter starts at 0 and advances by T, so every slab is T-aligned and
-    never wraps.  The counter is a Python int, or a 0-d int64 tensor in an
-    exported program (``torch.export`` would bake an int in as a constant).
+    counter starts at 0 and advances by T modulo a multiple of every ring
+    length.  Where T divides d (every ring of GTCRN-Micro) every slab is
+    T-aligned and never wraps; otherwise a slab that crosses the ring's end
+    is read and written by index.  The counter is a Python int, or a 0-d
+    int64 tensor in an exported program (``torch.export`` would bake an int
+    in as a constant).
     Shift cache, or ring with ``d < T``: ``xin = [cache | x]`` in time order
     with dilation d, and the cache keeps its last L frames.
     Rings stored narrower than ``x`` are cast on read and on write.
     """
     T, L = x.shape[1], cache.shape[1]
-    if ctx.ring and d >= T and torch.is_tensor(ctx.step):
+    if ctx.ring and d >= T and (torch.is_tensor(ctx.step)
+                                or any((ctx.step + j * d) % L + T > L for j in range(taps))):
         # the counter as a tensor (an exported program's state,
-        # io/export_program.py): the same slabs, read and written by index
+        # io/export_program.py), or a slab that crosses the ring's end (T
+        # does not divide d, as for GTCRN's 10-frame rings at T = 2 or 4):
+        # the same slabs, read and written by index
         ar = torch.arange(T, device=cache.device)
-        slabs = [cache.index_select(1, (ctx.step + j * d) % L + ar).to(x.dtype)
+        slabs = [cache.index_select(1, (ctx.step + j * d + ar) % L).to(x.dtype)
                  for j in range(taps)]
         xin = torch.cat(slabs + [x], dim=1)
-        cache.index_copy_(1, ctx.step % L + ar, x.to(cache.dtype))
+        cache.index_copy_(1, (ctx.step + ar) % L, x.to(cache.dtype))
         return xin, T
     if ctx.ring and d >= T:
         t = ctx.step
@@ -406,3 +412,62 @@ class TRALite(Layer):
         point_w = self.q_weight(ctx, "point_w", self.point_w, 1)
         g = torch.sigmoid(tF.linear(y, point_w.t(), self.point_b))
         return x * g[:, :, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Recurrent layers (GTCRN)
+# ---------------------------------------------------------------------------
+
+
+class GRU(Layer, nn.GRU):
+    """One GRU layer over (N, S, I), batch first (torch ``nn.GRU``, gate
+    order r, z, n; its leaves keep torch's names, ``weight_ih_l0`` ...,
+    ``_reverse`` for the backward direction).
+
+    A sequence runs as one ``torch._VF.gru`` call (cuDNN on the card, the
+    weights kept in its flat buffer); a unidirectional step of one frame runs
+    as one ``torch.gru_cell``.  The layer keeps no state: the caller hands in
+    the hidden state ``h`` (N, H) and gets the last one back."""
+
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = False):
+        nn.GRU.__init__(self, input_size, hidden_size, batch_first=True,
+                        bidirectional=bidirectional)
+
+    def forward(self, ctx: Ctx, x, h=None):
+        """x (N, S, I), h (N, H) or None (zeros) -> (y (N, S, D H), the last
+        hidden state (N, H); of the forward direction when bidirectional)."""
+        N, S, _ = x.shape
+        if h is None:
+            h = x.new_zeros((N, self.hidden_size))
+        if S == 1 and not self.bidirectional:
+            h = torch.gru_cell(x[:, 0], h, *self._flat_weights)
+            return h[:, None], h
+        D = 2 if self.bidirectional else 1
+        hx = h[None].expand(D, N, self.hidden_size).contiguous()
+        y, hn = torch._VF.gru(x, hx, self._flat_weights, True, 1, 0.0,
+                              torch.is_grad_enabled(), self.bidirectional, True)
+        return y, hn[0]
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last ``len(shape)`` axes jointly (torch
+    ``nn.LayerNorm(shape, eps)``), with an affine ``gamma``, ``beta`` of
+    that shape."""
+
+    def __init__(self, shape: tuple, eps: float = 1e-5):
+        super().__init__()
+        self.shape, self.eps = tuple(shape), eps
+        self.gamma = nn.Parameter(torch.ones(shape))
+        self.beta = nn.Parameter(torch.zeros(shape))
+
+    def forward(self, x):
+        return tF.layer_norm(x, self.shape, self.gamma, self.beta, self.eps)
+
+
+def hidden_state(ctx: Ctx, layer: Layer, shape: tuple):
+    """The hidden state (B, *shape) that ``layer`` carries from one
+    streaming step to the next (its state key ``<path>/h``, updated in place
+    by the caller), or None offline, where it starts from zeros."""
+    if ctx.initializing:
+        ctx.new_state[layer.key("h")] = tuple(shape)
+    return None if ctx.offline else ctx.state[layer.key("h")]

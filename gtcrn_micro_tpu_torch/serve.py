@@ -26,7 +26,9 @@ spec)``; each declares the axis of its state that holds the stream batch
   and cuBLAS products on the GPU), state ``(B, L, F, C)``, batch first.  It
   also serves throughput mode (``chunk_hops`` T in {2, 4, 8, 16} hops per
   step) and the state options of its ``init_state`` (``state_opts``:
-  ``l2_psum``, ``store_dtype``).
+  ``l2_psum``, ``store_dtype``).  ``models.gtcrn.GTCRN`` is the same
+  backend over GTCRN's layers (its state also holds GRU hidden states,
+  batch first).
 
 Model states and DSP buffers update in place.
 """
@@ -51,17 +53,24 @@ LATENCY_BUDGET_S = 0.010
 BACKENDS = ("grid", "step", "layered")
 
 
-def make_backend(name: str, params: dict, dtype=torch.bfloat16, device=None):
+def make_backend(name: str, params: dict, dtype=torch.bfloat16, device=None,
+                 model: str = "gtcrn_micro"):
     """The model backend ``name`` (one of :data:`BACKENDS`: kernel B2, kernel
-    B1, the layered model) built from ``params`` in ``dtype`` on ``device``."""
-    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro
+    B1, the layered model) built from ``params`` in ``dtype`` on ``device``.
+    ``model`` is the registry name (``models/registry.py``) of the layered
+    backend's model; the fused kernels run ``gtcrn_micro`` only."""
+    from gtcrn_micro_tpu_torch.models.registry import get_model
     from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
     from gtcrn_micro_tpu_torch.ops.fused_step import FusedGTCRNMicro
 
     if name == "layered":
-        return GTCRNMicro.from_params(params, dtype=dtype, device=device)
+        layered = get_model(model, dtype=dtype, device=device)
+        layered.load_params(params)
+        return layered
     if name not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {name!r}")
+    if model != "gtcrn_micro":
+        raise ValueError(f"the fused backend {name!r} runs gtcrn_micro, not {model!r}")
     cls = GridFusedGTCRNMicro if name == "grid" else FusedGTCRNMicro
     return cls(params, dtype=dtype, device=device)
 

@@ -7,11 +7,15 @@ counts them on the calls the forward makes: ``conv2d`` (output elements x
 kernel taps x input channels per group, as JAX's ``_conv_macs``; the
 transposed convs are convs over a zero-stuffed input, whose taps count as
 JAX's lhs-dilated conv counts them), ``linear``, ``matmul``/``@`` and
-``einsum`` (output elements x contracted size).
+``einsum`` (output elements x contracted size), and GTCRN's GRUs
+(``torch.gru`` over a sequence, ``torch.gru_cell`` for one step: output
+elements x 3 gates x (input + hidden size), the products of the input and
+the hidden state; the gates' elementwise work is not counted).
 """
 
 from __future__ import annotations
 
+import importlib
 import math
 
 import torch
@@ -61,6 +65,11 @@ class _MacCounter(TorchFunctionMode):
             self.total += out.numel() * args[0].shape[-1]
         elif func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__):
             self.total += out.numel() * args[0].shape[-1]
+        elif func is torch.gru:  # (input, hx, params, ...) -> (output, h_n)
+            x, hx = args[0], args[1]
+            self.total += out[0].numel() * 3 * (x.shape[-1] + hx.shape[-1])
+        elif func is torch.gru_cell:  # (input, hx, w_ih, w_hh, b_ih, b_hh) -> h
+            self.total += out.numel() * 3 * (args[0].shape[-1] + args[1].shape[-1])
         elif func is torch.einsum:
             eq, *ops = args
             ops = ops[0] if len(ops) == 1 and isinstance(ops[0], (list, tuple)) else ops
@@ -78,34 +87,44 @@ def macs(fn, *example_args) -> int:
 
 
 def model_complexity(model, seconds: float = 1.0, fs: int = 16000) -> tuple[int, int]:
-    """(params, MACs per ``seconds`` of audio) of a ``GTCRNMicro`` on its
-    device, ptflops-comparable: the offline forward over the frames of that
-    much audio."""
+    """(params, MACs per ``seconds`` of audio) of a layered model
+    (``GTCRNMicro``, ``GTCRN``) on its device, ptflops-comparable: the
+    offline forward over the frames of that much audio."""
     frames = int(seconds * fs) // model.config.hop_len + 1
     spec = torch.zeros((1, model.config.n_freqs, frames, 2), dtype=model.dtype,
                        device=model.device)
     return param_count(model.params()), macs(model.apply, spec)
 
 
+# the published figures: GTCRN-Micro's README; GTCRN's README, whose
+# parameters include the frozen ERB filters (24,576 values)
+PUBLISHED = {"gtcrn_micro": ("19.01 k", "45.92 M"),
+             "gtcrn": ("48.2 k with the ERB filters", "33.0 M")}
+
+
 def main(argv=None) -> tuple[int, int]:
-    """``python -m gtcrn_micro_tpu_torch.utils.complexity [--device cpu]``:
-    the full-width model's parameters and MACs per second of audio against
-    the published figures.  The MAC count leaves out JAX's one-hot channel
-    shuffle (3,193,344 MACs), which this port interleaves by a copy."""
+    """``python -m gtcrn_micro_tpu_torch.utils.complexity [--model gtcrn]
+    [--device cpu]``: the full-width model's trainable parameters and MACs
+    per second of audio against the published figures.  GTCRN-Micro's MAC
+    count leaves out JAX's one-hot channel shuffle (3,193,344 MACs), which
+    this port interleaves by a copy."""
     import argparse
 
     from gtcrn_micro_tpu_torch import resolve_device
-    from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, init_params
+    from gtcrn_micro_tpu_torch.models.registry import get_model
 
     parser = argparse.ArgumentParser(description="parameters and MACs per second of audio")
+    parser.add_argument("--model", default="gtcrn_micro", choices=sorted(PUBLISHED))
     parser.add_argument("--device", default=None, help="default: cuda")
     ns = parser.parse_args(argv)
     dev = resolve_device(ns.device)
-    model = GTCRNMicro.from_params(init_params(torch.Generator().manual_seed(0), device=dev),
-                                   device=dev)
+    init = importlib.import_module(f"gtcrn_micro_tpu_torch.models.{ns.model}").init_params
+    model = get_model(ns.model, device=dev)
+    model.load_params(init(torch.Generator().manual_seed(0), device=dev))
     n_params, n_macs = model_complexity(model)
-    print(f"params: {n_params / 1e3:.2f} k (published 19.01 k)")
-    print(f"MACs/s audio: {n_macs / 1e6:.2f} M (published 45.92 M)")
+    params, macs_s = PUBLISHED[ns.model]
+    print(f"params: {n_params / 1e3:.2f} k (published {params})")
+    print(f"MACs/s audio: {n_macs / 1e6:.2f} M (published {macs_s})")
     return n_params, n_macs
 
 

@@ -53,6 +53,45 @@ def test_enhance_wavs_matches_jax(setup, tmp_path):
         np.testing.assert_allclose(got[p], want[p], atol=1e-5, err_msg=p)
 
 
+@pytest.mark.parametrize("fs,n,channels", [(16000, 12345, 1), (8000, 10001, 1),
+                                            (11025, 7777, 1), (22050, 9999, 1),
+                                            (44100, 30001, 2), (48000, 47999, 1)])
+def test_header_length_is_the_read_length(tmp_path, fs, n, channels):
+    """``enhance_wavs`` buckets by the length its headers give at 16 kHz
+    before it reads a wav: that length is the length of the wav read and
+    resampled."""
+    from gtcrn_micro_tpu_torch.io.wav import wav_info
+
+    p = str(tmp_path / "x.wav")
+    x = np.random.default_rng(n).standard_normal((n, channels)) * 0.3
+    write_wav(p, x.clip(-1, 1), fs)
+    info = wav_info(p)
+    assert (info.frames, info.fs, info.channels, info.pcm16) == (n, fs, channels, True)
+    assert infer._length_16k(info.frames, info.fs) == len(infer._read_16k(p))
+
+
+def test_raw_and_float_batches_agree(setup, tmp_path):
+    """A mono 16-bit wav at 16 kHz goes to the model as its raw samples,
+    read straight into the batch and scaled on the device; the same samples
+    as the first channel of a stereo wav go as float32 from ``read_wav``.
+    Both give the same output, bit for bit."""
+    from gtcrn_micro_tpu_torch.io.wav import read_pcm16_into, wav_info
+
+    _, model = setup
+    x = (np.random.default_rng(5).standard_normal((9000, 2)) * 0.3).clip(-1, 1)
+    mono, stereo = str(tmp_path / "mono.wav"), str(tmp_path / "stereo.wav")
+    write_wav(mono, x[:, 0], 16000)
+    write_wav(stereo, x, 16000)
+    raw = np.empty(9000, np.int16)
+    read_pcm16_into(mono, wav_info(mono), raw)
+    np.testing.assert_array_equal(raw, read_wav(mono, dtype=np.int16)[0])
+    with pytest.raises(ValueError):
+        read_pcm16_into(stereo, wav_info(stereo), np.empty(9000, np.int16))
+    got = infer.enhance_wavs(model, [mono], device="cpu", progress=False)[mono]
+    want = infer.enhance_wavs(model, [stereo], device="cpu", progress=False)[stereo]
+    assert got.shape == (9000,) and np.array_equal(got, want)
+
+
 def test_enhance_silent_and_short_wavs(setup, tmp_path):
     """Silence in -> exactly 0 out; a wav of 200 samples (shorter than the
     reflect pad) works, where the JAX package's tail pad fails."""

@@ -244,7 +244,7 @@ def test_param_count_and_params_round_trip(setup):
     with torch.no_grad():
         assert torch.equal(model.apply(spec), tm.apply(spec))
     with pytest.raises(KeyError):
-        get_model("gtcrn")
+        get_model("nope")
 
 
 def test_fold_bn_params_matches_jax(setup):

@@ -131,8 +131,11 @@ def test_enhance_wavs_counts_the_offline_cells_frames(record, tmp_path):
     spans = rec.spans
     (root,) = [i for i, s in enumerate(spans) if s.name == "infer.call"]
     names = [s.name for s in spans if s.parent == root]
-    assert names == ["infer.read"] + ["infer.batch", "infer.forward", "infer.batch"] * 7
-    assert len(spans) == 2 + 3 * 7 and {s.request for s in spans} == {spans[root].request}
+    # the headers, then each batch read, assembled and enqueued before the
+    # batch ahead of it is trimmed
+    batch = ["infer.read", "infer.batch", "infer.forward"]
+    assert names == ["infer.read"] + batch + (batch + ["infer.batch"]) * 6 + ["infer.batch"]
+    assert len(spans) == 2 + 4 * 7 and {s.request for s in spans} == {spans[root].request}
     _assert_on_the_profilers_clock(spans, events)
 
 
@@ -164,7 +167,7 @@ def test_spans_on_the_cards_clock(record, tmp_path):
         work()
     events = list(prof.profiler.kineto_results.events())
     spans = profiling.recorded().spans
-    assert len(spans) == 40 * 4 + 2 + 3 * 3
+    assert len(spans) == 40 * 4 + 2 + 4 * 3
     on_device = {e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA}
     assert not on_device & {s.name for s in spans}
     host = [e for e in events if e.device_type() != torch.autograd.DeviceType.CUDA]
