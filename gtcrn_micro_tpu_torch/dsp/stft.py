@@ -6,6 +6,12 @@ infer.py:60-67): ``center=True`` with reflect padding of ``n_fft//2``,
 ``normalized=False``, ``onesided=True``.  Here that is torch's own transform;
 the public layout is the JAX package's ``(..., F, T, 2)``.
 
+The inverse is ``torch.istft``'s steps written out (:func:`istft_ola`):
+``torch.istft`` reads its envelope's minimum back to the host on every
+call, while :func:`istft_ola` takes an envelope built, and checked, once
+per shape (:func:`ola_envelope`), so that it can run inside a CUDA graph
+and leaves the host free while the device runs it.
+
 Windows are computed in float32 numpy exactly as the JAX package's
 ``_hann_np`` does, so both packages hold bit-identical windows.
 """
@@ -16,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as tF
 
 from gtcrn_micro_tpu_torch import resolve_device
 
@@ -78,14 +85,57 @@ def istft(spec: torch.Tensor, window: torch.Tensor, n_fft: int = 512,
 
     ``torch.istft`` semantics: synthesis windowing, overlap-add, squared-window
     envelope normalisation and center trim; length ``hop_len*(T-1)`` unless
-    ``length`` is given.
+    ``length`` is given.  :func:`istft_ola` over an envelope built for this
+    call (one read back to the host, as ``torch.istft`` makes).
     """
-    if win_len != n_fft:
-        raise ValueError("the reference always uses win_len == n_fft")
+    if win_len != n_fft or window.shape[0] != n_fft:
+        raise ValueError("the reference always uses win_len == n_fft == len(window)")
+    T = spec.shape[-1] if spec.is_complex() else spec.shape[-2]
+    length = hop_len * (T - 1) if length is None else length
+    return istft_ola(spec, window, length, ola_envelope(window, T, length, hop_len), hop_len)
+
+
+def _overlap_add(frames: torch.Tensor, hop_len: int) -> torch.Tensor:
+    """Overlap-add of frames (N, n_fft, T) at ``hop_len`` -> (N, n_fft + hop_len (T - 1))."""
+    N, n_fft, T = frames.shape
+    full = n_fft + hop_len * (T - 1)
+    return tF.fold(frames, (1, full), (1, n_fft), stride=(1, hop_len)).reshape(N, full)
+
+
+def ola_envelope(window: torch.Tensor, n_frames: int, length: int,
+                 hop_len: int = 256) -> torch.Tensor:
+    """The envelope :func:`istft_ola` divides by: the squared window
+    overlap-added over ``n_frames`` frames and trimmed as ``torch.istft``
+    trims it with ``center=True`` to ``length`` samples.  Raises where it
+    falls under 1e-11, as ``torch.istft`` does (its one read back to the
+    host, made here once for every call that uses the envelope)."""
+    n_fft = window.shape[0]
+    start = n_fft // 2
+    if length > hop_len * (n_frames - 1) + start:
+        raise ValueError(f"{length} samples from {n_frames} frames: at most "
+                         f"{hop_len * (n_frames - 1) + start}")
+    w2 = window.pow(2)[None, :, None].expand(1, n_fft, n_frames)
+    env = _overlap_add(w2, hop_len)[0, start : start + length]
+    low = env.abs().min()
+    if low < 1e-11:
+        raise RuntimeError(f"istft(n_fft={n_fft}, hop_length={hop_len}, frames={n_frames}, "
+                           f"length={length}): window overlap add min: {float(low)!r}")
+    return env
+
+
+def istft_ola(spec: torch.Tensor, window: torch.Tensor, length: int,
+              envelope: torch.Tensor, hop_len: int = 256) -> torch.Tensor:
+    """:func:`istft` of (..., F, T, 2) or complex (..., F, T) to ``length``
+    samples, with the envelope of :func:`ola_envelope` for this T and
+    ``length``: ``torch.istft``'s steps (inverse real FFT of ``n_fft =
+    window`` length, synthesis window, overlap-add, division by the envelope,
+    centre trim), with no read back to the host."""
     if not spec.is_complex():
         spec = torch.view_as_complex(spec.contiguous())
+    n_fft = window.shape[0]
     lead = spec.shape[:-2]
-    y = torch.istft(spec.reshape(-1, *spec.shape[-2:]), n_fft, hop_len,
-                    win_len, window, center=True, normalized=False,
-                    onesided=True, length=length)
-    return y.reshape(*lead, y.shape[-1])
+    frames = torch.fft.irfft(spec.reshape(-1, *spec.shape[-2:]).transpose(1, 2), n=n_fft)
+    frames = (frames * window).transpose(1, 2)  # (N, n_fft, T)
+    start = n_fft // 2
+    y = _overlap_add(frames, hop_len)[:, start : start + length] / envelope
+    return y.reshape(*lead, length)

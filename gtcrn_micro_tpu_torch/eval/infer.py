@@ -12,19 +12,29 @@ batched within a bucket.  Each wav's tail is reflect-padded (torch.stft
 ``center=True``) before the bucket's zero pad, so a wav enhanced in a batch
 matches the wav enhanced alone except for the overlap-add of the padding
 frames into its last ~2 hops.
+
+On a card each batch shape (rows, samples, sample dtype) runs its scale,
+STFT, forward and iSTFT as one CUDA graph: the first batch of a shape runs
+as it comes and the graph is captured behind it; every later batch of the
+shape, in that call or a later one, is a replay, one launch in place of
+some 600.  The graphs are kept per model and freed with it.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import os
+import threading
+import weakref
 
 import numpy as np
 import torch
+from torch import nn
 
 from gtcrn_micro_tpu_torch import resolve_device
-from gtcrn_micro_tpu_torch.dsp.stft import istft, sqrt_hann_window, stft
+from gtcrn_micro_tpu_torch.dsp.stft import istft_ola, ola_envelope, sqrt_hann_window, stft
 from gtcrn_micro_tpu_torch.io.wav import (
     extract_fileid,
     read_pcm16_into,
@@ -33,6 +43,7 @@ from gtcrn_micro_tpu_torch.io.wav import (
     wav_info,
     write_wav,
 )
+from gtcrn_micro_tpu_torch.nn.core import exact_f32
 from gtcrn_micro_tpu_torch.utils.profiling import count, span, tracing
 
 FS = 16000
@@ -54,20 +65,33 @@ def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
     The lengths come from the wavs' headers, and the wavs are read batch by
     batch: the host reads and assembles a batch while the device runs the
     one before.  On a card each batch passes through page-locked host
-    buffers, and the waveforms returned are views of them.
+    buffers, and the waveforms returned are views of them; each batch
+    shape after its first runs as a replay of a CUDA graph of the model's
+    (:class:`_Graphs`), which reads the model's parameters and buffers
+    where they were at its capture: a weight changed in place shows in the
+    next call, a model whose tensors moved is captured anew.  Calls on one
+    model run one at a time.
 
     Under ``torch.profiler`` the call is the span ``infer.call`` over
     ``infer.read`` (the headers; then, a batch, its wav reads and
     resampling), ``infer.batch`` (assembly and reflect pad; the trim) and
-    ``infer.forward`` (STFT, ``apply``, iSTFT and the copy back enqueued;
-    the wait for the copy is the call's own time); the counters
-    ``infer.frames`` (each wav's own frames) and ``infer.frames_computed``
-    (bucket frames times rows) (``utils/profiling.span``, ``count``)."""
+    ``infer.forward`` (scale, STFT, ``apply``, iSTFT and the copy back
+    enqueued, or on a card the copies and the replay; the wait for the copy
+    back is the call's own time); the counters ``infer.frames`` (each wav's
+    own frames) and ``infer.frames_computed`` (bucket frames times rows),
+    and on a card ``infer.frames_graphed`` (bucket frames times rows of a
+    batch run as a replay, 0 for a shape's first) and
+    ``infer.graph_captures`` (one a capture)
+    (``utils/profiling.span``, ``count``)."""
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not on {dev}")
     with span("infer.call"):
-        return _enhance(model, wav_paths, batch_size, dev, progress)
+        if dev.type != "cuda":
+            return _enhance(model, wav_paths, batch_size, dev, progress, None)
+        graphs = _graphs_of(model, dev)
+        with graphs.lock:
+            return _enhance(model, wav_paths, batch_size, dev, progress, graphs)
 
 
 def _length_16k(n: int, fs: int) -> int:
@@ -87,9 +111,107 @@ def _read_16k(path: str) -> np.ndarray:
     return x.astype(np.float32, copy=False)
 
 
+def _forward(model, x: torch.Tensor, window: torch.Tensor,
+             envelope: torch.Tensor) -> torch.Tensor:
+    """A batch's samples on the device, (rows, samples) int16 or float32, to
+    its enhanced waveforms (rows, samples) float32."""
+    if x.dtype == torch.int16:
+        x = x.float().mul_(1 / 32768)
+    spec = stft(x, window)
+    enh = model.apply(spec.to(model.dtype)).float()
+    return istft_ola(enh, window, x.shape[-1], envelope)
+
+
+def _envelope(window: torch.Tensor, samples: int) -> torch.Tensor:
+    return ola_envelope(window, samples // 256 + 1, samples)
+
+
+class _Replay:
+    """One batch shape's :func:`_forward` as a CUDA graph: copy a batch into
+    ``x``, replay ``graph``, and read ``out`` before the next replay of any
+    graph of its pool."""
+
+    def __init__(self, model, x: torch.Tensor, window: torch.Tensor,
+                 envelope: torch.Tensor, pool):
+        """Capture the graph on the current stream (not the device's default),
+        after a pass as it comes has loaded cuFFT's plans and cuDNN's engines;
+        the graph reads ``x``, ``window`` and ``envelope`` where they are."""
+        self.x, self.window, self.envelope = x, window, envelope
+        self.graph = torch.cuda.CUDAGraph()
+        # capture_begin, not torch.cuda.graph: that one would first sync and
+        # empty the device's and the page-locked caches
+        self.graph.capture_begin(pool=pool)
+        try:
+            self.out = _forward(model, x, window, envelope)
+        finally:
+            self.graph.capture_end()
+        if tracing():
+            count("infer.graph_captures")
+
+
+def _weights_at(model: nn.Module) -> tuple:
+    """Where the parameters and buffers of ``model`` live."""
+    return tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers()))
+
+
+class _Graphs:
+    """A model's replays by (rows, samples, sample dtype), in one memory
+    pool: each replay's output is copied out before the next replay, so the
+    graphs may reuse one another's intermediates.  ``weights``: where the
+    model's tensors were at the captures."""
+
+    def __init__(self, weights: tuple, device: torch.device):
+        self.weights = weights
+        self.window = sqrt_hann_window(512, device=device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)  # the captures'
+        self.replays: dict = {}
+        self.lock = threading.Lock()  # one input and one output buffer a shape
+
+    def run(self, model, host: torch.Tensor) -> tuple[torch.Tensor, bool]:
+        """The enhanced waveforms of the page-locked batch ``host``, and
+        whether they came from a replay: the first batch of a shape runs as
+        it comes, and the shape's graph is captured behind it."""
+        key = (*host.shape, host.dtype)
+        r = self.replays.get(key)
+        if r is not None:
+            r.x.copy_(host, non_blocking=True)
+            r.graph.replay()
+            return r.out, True
+        dev = self.window.device
+        cur = torch.cuda.current_stream(dev)
+        x = torch.empty(host.shape, dtype=host.dtype, device=dev)
+        envelope = _envelope(self.window, host.shape[1])
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            x.copy_(host, non_blocking=True)
+            first = _forward(model, x, self.window, envelope)
+            self.replays[key] = _Replay(model, x, self.window, envelope, self.pool)
+        cur.wait_stream(self.stream)
+        first.record_stream(cur)  # read there: its memory waits for that
+        return first, False
+
+
+_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # model -> _Graphs
+
+
+def _graphs_of(model: nn.Module, dev: torch.device) -> _Graphs:
+    """The model's graphs; new ones where its tensors moved since the
+    captures (their addresses are in the graphs)."""
+    at = _weights_at(model)
+    g = _GRAPHS.get(model)
+    if g is None or g.weights != at:
+        g = _GRAPHS[model] = _Graphs(at, dev)
+    return g
+
+
 def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
-             progress: bool) -> dict[str, np.ndarray]:
-    window = sqrt_hann_window(512, device=dev)
+             progress: bool, graphs: _Graphs | None) -> dict[str, np.ndarray]:
+    """:func:`enhance_wavs`, each batch through ``graphs`` (a card's) or, with
+    None, through :func:`_forward` as it comes."""
+    if graphs is None:
+        window = sqrt_hann_window(512, device=dev)
+        envelopes: dict = {}  # samples -> envelope
     # page-locked host buffers on a card: the copies to and from the device
     # then run at the link's rate, without CUDA's staging through its
     # own pinned buffer (for a 4,096-frame batch of 8, 33.6 MB each way)
@@ -150,15 +272,18 @@ def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
             if tracing():
                 count("infer.frames", sum(lengths[i] // 256 + 1 for i in chunk))
                 count("infer.frames_computed", bucket * len(chunk))
-        with torch.no_grad(), span("infer.forward"):
-            x = host.to(dev, non_blocking=pin)
-            if raw:
-                x = x.float().mul_(1 / 32768)
-            spec = stft(x, window)
-            enh = model.apply(spec.to(model.dtype)).float()
-            wavs = istft(enh, window, length=samples)
-            # the copy back is queued behind this batch and ahead of the next,
-            # which the device runs while the host reads
+        with torch.no_grad(), exact_f32(), span("infer.forward"):
+            if graphs is None:
+                if samples not in envelopes:
+                    envelopes[samples] = _envelope(window, samples)
+                wavs = _forward(model, host.to(dev, non_blocking=pin), window,
+                                envelopes[samples])
+            else:
+                wavs, replayed = graphs.run(model, host)
+                if tracing():
+                    count("infer.frames_graphed", bucket * len(chunk) if replayed else 0)
+            # the copy back is queued behind this batch and ahead of the next
+            # (of any shape), which the device runs while the host reads
             back, ready = wavs, None
             if pin:
                 back = torch.empty(wavs.shape, pin_memory=True).copy_(wavs, non_blocking=True)

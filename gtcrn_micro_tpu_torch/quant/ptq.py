@@ -19,10 +19,9 @@ names: 59 activation paths) and the tensor.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
+from torch import nn
 
 from gtcrn_micro_tpu_torch.nn.core import exact_f32
 from gtcrn_micro_tpu_torch.quant.fake_quant import (
@@ -143,25 +142,34 @@ class FakeQuantizerV4(FakeQuantizer):
         return fake_quant(wf, weight_qparams(wf, channel_axis)) / sf
 
 
-@dataclasses.dataclass
-class QuantizedModel:
+class QuantizedModel(nn.Module):
     """The int8-simulated layered model: offline :meth:`apply` and the
     streaming :meth:`init_state` / :meth:`step` of ``model`` (a
     ``models.gtcrn_micro.GTCRNMicro``, which holds the float params) with a
     fake-quant hook at every boundary.  One graph definition: the offline,
     streaming and quantized paths cannot diverge.  ``v4`` simulates the
-    full-integer per-channel deployment (:class:`FakeQuantizerV4`).  The
-    activation params move to the model's device."""
+    full-integer per-channel deployment (:class:`FakeQuantizerV4`); it is
+    fixed at construction.  The activation params move to the model's
+    device and are held as buffers, so ``parameters()`` and ``buffers()``
+    name every tensor the forward reads."""
 
-    model: object
-    act_qp: dict[str, QParams]
-    v4: bool = False
+    def __init__(self, model, act_qp: dict[str, QParams], v4: bool = False):
+        super().__init__()
+        self.model, self._v4 = model, v4
+        self._bounds = [(path, qp.qmin, qp.qmax) for path, qp in act_qp.items()]
+        for i, qp in enumerate(act_qp.values()):
+            self.register_buffer(f"scale_{i}", qp.scale.to(model.device))
+            self.register_buffer(f"zero_{i}", qp.zero.to(model.device))
 
-    def __post_init__(self):
-        self.act_qp = {k: qp.to(self.model.device) for k, qp in self.act_qp.items()}
-
+    v4 = property(lambda self: self._v4)
     device = property(lambda self: self.model.device)
     dtype = property(lambda self: self.model.dtype)
+
+    @property
+    def act_qp(self) -> dict[str, QParams]:
+        """The activation params by path, over the buffers."""
+        return {path: QParams(getattr(self, f"scale_{i}"), getattr(self, f"zero_{i}"), lo, hi)
+                for i, (path, lo, hi) in enumerate(self._bounds)}
 
     def _quantizer(self) -> FakeQuantizer:
         return (FakeQuantizerV4 if self.v4 else FakeQuantizer)(self.act_qp)

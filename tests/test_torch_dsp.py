@@ -83,6 +83,37 @@ def test_offline_stft_istft_match(windows):
     np.testing.assert_allclose(ty, jy, atol=AUDIO_TOL)
 
 
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("bucket", [128, 256, 1024])
+@pytest.mark.parametrize("short", [0, 1000])
+def test_istft_ola_matches_istft(windows, rows, bucket, short):
+    """The iSTFT without a read back (an envelope built once per shape), and
+    ``istft`` over it, against ``torch.istft`` at float32 round-off, on
+    ``enhance_wavs``'s bucket shapes (T = bucket + 1 frames), to ``length``
+    hop (T - 1) and shorter."""
+    tw = windows[1]
+    T, length = bucket + 1, HOP * bucket - short
+    spec = torch.randn((rows, 257, T, 2), generator=torch.Generator().manual_seed(bucket + rows))
+    env = tstft.ola_envelope(tw, T, length)
+    got = tstft.istft_ola(spec, tw, length, env)
+    want = torch.istft(torch.view_as_complex(spec), 512, HOP, 512, tw, center=True,
+                       normalized=False, onesided=True, length=length)
+    assert got.shape == want.shape == (rows, length)
+    assert float((got - want).norm() / want.norm()) <= 1e-6
+    torch.testing.assert_close(tstft.istft(spec, tw, length=length), got, rtol=0, atol=0)
+
+
+def test_istft_ola_zero_envelope_raises_as_istft():
+    zero = torch.zeros(512)
+    spec = torch.randn((2, 257, 9, 2))
+    with pytest.raises(RuntimeError, match="window overlap add min"):
+        torch.istft(torch.view_as_complex(spec), 512, HOP, 512, zero, length=HOP * 8)
+    with pytest.raises(RuntimeError, match="window overlap add min"):
+        tstft.ola_envelope(zero, 9, HOP * 8)
+    with pytest.raises(RuntimeError, match="window overlap add min"):
+        tstft.istft(spec, zero, length=HOP * 8)
+
+
 def test_dft_mats_exact(windows):
     jw, tw = windows
     for j, t in zip(jsd._dft_mats(jw), tsd._dft_mats(tw)):

@@ -297,6 +297,16 @@ def test_rnn_readers_split_busy_and_idle_time(monkeypatch):
     assert _reader("gtcrn.idle_rnn_pct")(t) is None
 
 
+def test_rnn_kernel_reader_reads_the_gru_kernel_by_name():
+    """The GRU kernel's device time over the window's busy time, with or
+    without the program's spans; None where no GRU kernel ran."""
+    gru = "void RNN_blockPersist_fp_GRU<float, float, float, 32>(float const*, float*)"
+    t = _trace(0, 200, [("conv", 0, 30), (gru, 40, 70), ("gemm", 60, 90), (gru, 150, 160)])
+    assert _reader("gtcrn.rnn_kernel_busy_pct")(t) == pytest.approx(100 * 40 / 90)
+    assert _reader("gtcrn.rnn_kernel_busy_pct")(_trace(0, 200, [("conv", 0, 30)])) is None
+    assert _reader("gtcrn.rnn_kernel_busy_pct")(_trace(0, 200)) is None
+
+
 def test_mfu_reader_counts_the_clips_own_frames():
     from benchmark import work, work_gtcrn
 

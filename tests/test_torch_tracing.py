@@ -139,6 +139,18 @@ def test_enhance_wavs_counts_the_offline_cells_frames(record, tmp_path):
     _assert_on_the_profilers_clock(spans, events)
 
 
+def test_cpu_enhance_wavs_counts_no_graphed_frames(record, tmp_path):
+    """Off a card no batch runs as a graph: neither graph counter appears, so
+    ``offline.graph_frames_pct`` reads nothing there."""
+    paths = _wavs(tmp_path, [FS, FS * 2])
+    with profile(activities=[ProfilerActivity.CPU]):
+        enhance_wavs(_Identity(), paths, device="cpu", progress=False)
+    counters = profiling.recorded().counters
+    assert counters["infer.frames_computed"] == 64 + 128  # one wav in each bucket
+    assert not {"infer.frames_graphed", "infer.graph_captures"} & set(counters)
+    assert _reader("offline.graph_frames_pct")(_trace(0, 1)) is None
+
+
 @pytest.mark.cuda
 def test_spans_on_the_cards_clock(record, tmp_path):
     """On the card: the served step over B2 and the offline call over the
@@ -243,3 +255,12 @@ def test_pad_frames_reader(monkeypatch):
     assert _reader("offline.pad_frames_pct")(_trace(0, 1)) == pytest.approx(34.4172, abs=1e-4)
     _rec(monkeypatch, [])
     assert _reader("offline.pad_frames_pct")(_trace(0, 1)) is None
+
+
+@pytest.mark.parametrize("graphed,want", [(23_680, 100.0), (0, 0.0), (None, None)])
+def test_graph_frames_reader(monkeypatch, graphed, want):
+    counters = {"infer.frames": 15_530, "infer.frames_computed": 23_680}
+    if graphed is not None:
+        counters["infer.frames_graphed"] = graphed
+    _rec(monkeypatch, [], counters)
+    assert _reader("offline.graph_frames_pct")(_trace(0, 1)) == want
