@@ -267,7 +267,7 @@ def layered_phase(torch, dev, params, spec, card) -> dict:
 
     def stream(m, x, T=1, **opts):
         st = m.init_state(x.shape[0], **opts)
-        outs = [m.step(None, st, x[:, :, t : t + T])[0] for t in range(0, x.shape[2], T)]
+        outs = [m.step(st, x[:, :, t : t + T])[0] for t in range(0, x.shape[2], T)]
         return torch.cat(outs, dim=2)
 
     def check(label, ref, got, max_abs=True):
@@ -332,7 +332,7 @@ def layered_phase(torch, dev, params, spec, card) -> dict:
                 finite = finite and bool(torch.isfinite(out).all())
                 if c == 0:
                     silent_max = max(silent_max, float(out[5].abs().max()))
-        slot, st, dsp = 7, srv._states[1][0], srv._dsp[1][0]  # cohort 1, its only shard
+        slot, st, (dsp,) = 7, srv._states[1][0], srv._dsp[1][0]  # cohort 1, its only shard
         rows = [v for k, v in st.items() if k != "step"] + [dsp.in_buf, dsp.ola_buf]
         busy = all(float(v[slot].abs().max()) > 0 for v in rows)
         srv.reset_slot(1, slot)
@@ -694,7 +694,7 @@ def quant_phase(torch, dev, params, card) -> dict:
     spec = torch.randn((4, 257, 32, 2), generator=g) * 0.3
     off = qm.apply(spec.to(dev))
     ok1, msg1 = tie_bounds(qm_cpu.apply(spec), off.cpu())
-    ring, _ = scan_stepper(qm.step, None, qm.init_state(4), spec.to(dev))
+    ring, _ = scan_stepper(qm.step, qm.init_state(4), spec.to(dev))
     ok2, msg2 = tie_bounds(off, ring)
     say("quant", f"int8 QuantizedModel.apply B=4 x 32 frames, card vs CPU: {msg1} "
                  f"{'ok' if ok1 else 'FAILED'}; ring step T=1 vs apply on the card: {msg2} "
@@ -745,7 +745,7 @@ def quant_phase(torch, dev, params, card) -> dict:
         y8, ys = [], []
         for t in range(20):
             y8.append(serving.step(st8, spec[:, :, t : t + 1])[0])
-            ys.append(qm.step(None, st_sim, spec[:, :, t : t + 1])[0])
+            ys.append(qm.step(st_sim, spec[:, :, t : t + 1])[0])
         ok, msg = tie_bounds(torch.cat(ys, 2), torch.cat(y8, 2))
         verdict = ("ok" if ok else "FAILED") if B8 == 2 else "(reported)"
         say("quant", f"Int8Serving B={B8} x 20 frames (f32 carry) vs the fake-quant step on the "
@@ -1085,8 +1085,8 @@ def dist_phase(torch, dev, params, card, act_qp, folded, native_build) -> dict:
         err, err8, mag8, host_s = 0.0, 0.0, 0.0, 0.0
         for t in range(20):
             frame = spec[:, :, t : t + 1]
-            y = b2.step(None, st, frame.to(dev))[0].cpu().numpy()[0, :, 0]
-            y8 = qm.step(None, st8, frame.to(dev))[0].cpu().numpy()[0, :, 0]
+            y = b2.step(st, frame.to(dev))[0].cpu().numpy()[0, :, 0]
+            y8 = qm.step(st8, frame.to(dev))[0].cpu().numpy()[0, :, 0]
             t1 = time.perf_counter()
             yn, yn8 = eng.step(frame[0, :, 0].numpy()), eng8.step(frame[0, :, 0].numpy())
             host_s += time.perf_counter() - t1
@@ -1331,7 +1331,7 @@ def rounding_phase(torch, dev, card, quant, native_build) -> dict:
         err, mag = 0.0, 0.0
         for t in range(20):
             frame = spec[:, :, t : t + 1]
-            y = qm.step(None, st, frame.to(dev))[0].cpu().numpy()[0, :, 0]
+            y = qm.step(st, frame.to(dev))[0].cpu().numpy()[0, :, 0]
             err = max(err, float(np.abs(eng.step(frame[0, :, 0].numpy()) - y).max()))
             mag = max(mag, float(np.abs(y).max()))
         eng.close()
@@ -1609,7 +1609,7 @@ def export_phase(torch, dev, params, card, enhanced: str) -> None:
         res = onnx["gtcrn_micro_stream.onnx"](*caches, frame.cpu().numpy())
         caches = res[1:]
         got.append(torch.from_numpy(res[0]))
-        want.append(model.step(None, state, frame)[0].cpu())
+        want.append(model.step(state, frame)[0].cpu())
     results["stream"] = (torch.cat(got, 2), torch.cat(want, 2))
     step = stream_dsp.make_audio_step(model, window, dft="mxu")
     dsp, state = stream_dsp.init_dsp_state(1, device=dev), model.init_state(1, ring=False)
@@ -1620,7 +1620,7 @@ def export_phase(torch, dev, params, card, enhanced: str) -> None:
         res = onnx["gtcrn_micro_audio.onnx"](*flat, c)
         flat = res[1:]
         got.append(torch.from_numpy(res[0]))
-        want.append(step(None, dsp, state, torch.from_numpy(c).to(dev))[0].cpu())
+        want.append(step(dsp, state, torch.from_numpy(c).to(dev))[0].cpu())
     results["audio"] = (torch.cat(got, -1), torch.cat(want, -1))
     for name, (g, w) in results.items():
         err, snr = float((g - w).abs().max()), snr_db(w, g)
@@ -2184,7 +2184,7 @@ def main() -> None:
         st = model.init_state(B)
         outs = []
         for t in range(T):
-            y, st = model.step(None, st, spec[:, :, t : t + 1].to(dtype))
+            y, st = model.step(st, spec[:, :, t : t + 1].to(dtype))
             outs.append(y.float())
         torch.cuda.synchronize()
         return torch.cat(outs, dim=2), st
@@ -2228,12 +2228,12 @@ def main() -> None:
         return {k: (v[..., :b].clone() if torch.is_tensor(v) else v) for k, v in st.items()}
 
     plain_st = clone(st0)
-    yp, plain_st = plain16.step(None, plain_st, spec_s)
+    yp, plain_st = plain16.step(plain_st, spec_s)
     models = {}
     for name, k in kernels.items():
         model = models[name] = k["cls"](params, dtype=dt, device=dev)
         st = clone(st0)
-        yk, st = model.step(None, st, spec_s)
+        yk, st = model.step(st, spec_s)
         torch.cuda.synchronize()
         err = float((yk.float() - yp.float()).abs().max())
         ok = err <= 2 ** -7 * float(yp.float().abs().max())
@@ -2261,7 +2261,7 @@ def main() -> None:
                    f"(H100 SXM peaks: 67 TFLOP/s f32, 494.7 TFLOP/s TF32 taken three times "
                    f"for the tensor-core share, 3.35 TB/s)")
     timing_st = clone(st0)  # steps on it advance its counter; timing only
-    plain_ms = cuda_ms(torch, lambda: plain16.step(None, timing_st, spec_s), n=10)
+    plain_ms = cuda_ms(torch, lambda: plain16.step(timing_st, spec_s), n=10)
 
     def bare_launch(name, model, st, spec_b, out):
         """The kernel's launch alone, not through the counted wrapper."""
@@ -2286,7 +2286,7 @@ def main() -> None:
         wave_ms = cuda_ms(torch, bare_launch(name, model, st_w, spec_w, torch.empty_like(spec_w)),
                           n=10, reps=10)
         wave_bound_ms = bound(wave)[0]
-        wrapper_ms = cuda_ms(torch, lambda: model.step(None, timing_st, spec_s), n=10)
+        wrapper_ms = cuda_ms(torch, lambda: model.step(timing_st, spec_s), n=10)
         k.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  wrapper_ms=wrapper_ms, wave_batch=wave, wave_ms=wave_ms,
                  wave_bound_ms=wave_bound_ms)
@@ -2335,7 +2335,7 @@ def main() -> None:
         srv.reset_slot(1, slot)
         zeroed = all(float(v[..., slot].abs().max()) == 0 for v in rings)
         kept = all(float(v[..., slot - 1].abs().max()) > 0 for v in rings)
-        dsp_zero = float(srv._dsp[1][0].in_buf[slot].abs().max()) == 0
+        dsp_zero = float(srv._dsp[1][0][0].in_buf[slot].abs().max()) == 0
         if not (busy and zeroed and kept and dsp_zero):
             fail(f"reset_slot: busy {busy} zeroed {zeroed} neighbour kept {kept} dsp {dsp_zero}")
         say("serve", f"admit/release/reset of cohort 1 slot {slot}: its ring columns and DSP "

@@ -165,8 +165,8 @@ def _istft_chunk_mxu(state: DspState, spec: torch.Tensor, inv: torch.Tensor):
 def make_audio_step(model, window: torch.Tensor, dft: str = "fft"):
     """Audio-in -> audio-out serving step over ``model``.
 
-    Returns ``step(params, dsp_state, model_state, chunk) -> (out_chunk,
-    dsp_state, model_state)``, where ``chunk`` is (B, 256*T) samples and
+    Returns ``step(dsp_state, model_state, chunk) -> (out_chunk, dsp_state,
+    model_state)``, where ``chunk`` is (B, 256*T) samples and
     ``out_chunk`` the enhanced samples one hop behind.  ``dft="fft"`` uses the
     float32 FFT; ``"mxu"`` computes the windowed DFT pair as two GEMMs in the
     serving dtype (the name is the JAX package's).  Under ``torch.profiler``
@@ -182,14 +182,14 @@ def make_audio_step(model, window: torch.Tensor, dft: str = "fft"):
         def mats(dtype):  # fwd in the serving dtype; inv rounded to it, kept f32
             return [mats32[0].to(dtype), mats32[1].to(dtype).float()]
 
-    def step(params, dsp_state: DspState, model_state, chunk: torch.Tensor):
+    def step(dsp_state: DspState, model_state, chunk: torch.Tensor):
         with span("serve.stft"):
             if dft == "fft":
                 spec, dsp_state = stft_chunk(dsp_state, chunk, window)
             else:
                 spec, dsp_state = _stft_chunk_mxu(dsp_state, chunk, mats(chunk.dtype)[0])
         with span("serve.model"):
-            out_spec, model_state = model.step(params, model_state, spec)
+            out_spec, model_state = model.step(model_state, spec)
         with span("serve.istft"):
             if dft == "fft":
                 out, dsp_state = istft_chunk(dsp_state, out_spec, window)
@@ -203,17 +203,17 @@ def make_audio_step(model, window: torch.Tensor, dft: str = "fft"):
 
 def make_audio_scan(model, window: torch.Tensor, dft: str = "fft"):
     """Long-form audio streaming: a loop of :func:`make_audio_step` over hop
-    chunks.  ``scan(params, dsp_state, model_state, audio) -> (out, dsp,
+    chunks.  ``scan(dsp_state, model_state, audio) -> (out, dsp,
     model_state)`` with ``audio`` (B, n_hops*256); ``out`` carries the
     one-hop delay (slice ``out[:, 256:]`` against ``audio[:, :-256]``)."""
     step = make_audio_step(model, window, dft=dft)
 
-    def scan(params, dsp_state: DspState, model_state, audio: torch.Tensor):
+    def scan(dsp_state: DspState, model_state, audio: torch.Tensor):
         B, n = audio.shape
         outs = []
         for h in range(n // _HOP):
             out, dsp_state, model_state = step(
-                params, dsp_state, model_state, audio[:, _HOP * h : _HOP * (h + 1)]
+                dsp_state, model_state, audio[:, _HOP * h : _HOP * (h + 1)]
             )
             outs.append(out)
         return torch.cat(outs, dim=-1), dsp_state, model_state

@@ -76,7 +76,7 @@ def export_streaming(model, batch: int) -> bytes:
     spec = torch.zeros((batch, model.config.n_freqs, 1, 2), device=model.device)
 
     def step(st, s):
-        return model.step(None, _cloned(st), s)
+        return model.step(_cloned(st), s)
 
     return _save(step, (state, spec), model)
 
@@ -103,7 +103,7 @@ def export_audio(model, batch: int, chunk_hops: int = 1, dft: str = "mxu") -> by
 
     def flat_step(in_buf, ola_buf, mstate, c):
         dsp = stream_dsp.DspState(in_buf.clone(), ola_buf.clone())
-        out, dsp, ms = step(None, dsp, _cloned(mstate), c)
+        out, dsp, ms = step(dsp, _cloned(mstate), c)
         return out, dsp.in_buf, dsp.ola_buf, ms
 
     return _save(flat_step, (dsp0.in_buf, dsp0.ola_buf, state, chunk), model)

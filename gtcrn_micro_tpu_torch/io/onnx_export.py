@@ -600,7 +600,7 @@ def export_stream_onnx(model, batch: int = 1) -> bytes:
     spec = torch.zeros((batch, model.config.n_freqs, 1, 2), device=model.device)
 
     def step(caches, s):
-        return model.step(None, dict(zip(keys, caches)), s)[0]
+        return model.step(dict(zip(keys, caches)), s)[0]
 
     return export_onnx(step, ([state[k] for k in keys], spec), owner=model,
                        input_names=keys + ["audio"],
@@ -634,7 +634,7 @@ def export_audio_onnx(model, batch: int = 1, chunk_hops: int = 1) -> bytes:
     chunk = torch.zeros((batch, 256 * chunk_hops), device=model.device)
 
     def fn(in_buf, ola_buf, caches, c):
-        out, _, _ = step(None, stream_dsp.DspState(in_buf, ola_buf), dict(zip(keys, caches)), c)
+        out, _, _ = step(stream_dsp.DspState(in_buf, ola_buf), dict(zip(keys, caches)), c)
         return out
 
     return export_onnx(fn, (dsp0.in_buf, dsp0.ola_buf, [state[k] for k in keys], chunk),

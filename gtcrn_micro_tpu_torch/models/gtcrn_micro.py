@@ -323,12 +323,11 @@ class GTCRNMicro(nn.Module):
         GTCRN-Micro divides 16, so the counter runs modulo 16."""
         return (t + T) & 15
 
-    def step(self, params, state: dict, spec, quant=None):
+    def step(self, state: dict, spec, quant=None):
         """One streaming step over a chunk: spec (B, 257, T, 2) -> (enhanced
-        spec, the same state dict, updated in place).  ``params`` is
-        ignored.  With ring state T must be a power of two <= 16.  ``quant``:
-        a quantization hook, as for :meth:`apply`."""
-        del params
+        spec, the same state dict, updated in place).  With ring state T must
+        be a power of two <= 16.  ``quant``: a quantization hook, as for
+        :meth:`apply`."""
         ring = "step" in state
         T = spec.shape[2]
         if ring and not (1 <= T <= 16 and T & (T - 1) == 0):
@@ -343,18 +342,18 @@ class GTCRNMicro(nn.Module):
             state["step"] = self._next_step(state["step"], T)
         return out, state
 
-    def scan_frames(self, params, state: dict, spec):
+    def scan_frames(self, state: dict, spec):
         """Stream a whole utterance one frame at a time: spec (B, F, T, 2)
         -> (enhanced spec, final state)."""
-        return scan_stepper(self.step, params, state, spec)
+        return scan_stepper(self.step, state, spec)
 
 
-def scan_stepper(step_fn, params, state: dict, spec):
-    """Frame-by-frame loop of any step-protocol callable (``step(params,
-    state, frame) -> (out, state)``) over spec (B, F, T, 2)."""
+def scan_stepper(step_fn, state: dict, spec):
+    """Frame-by-frame loop of any step-protocol callable (``step(state,
+    frame) -> (out, state)``) over spec (B, F, T, 2)."""
     outs = []
     for t in range(spec.shape[2]):
-        y, state = step_fn(params, state, spec[:, :, t : t + 1])
+        y, state = step_fn(state, spec[:, :, t : t + 1])
         outs.append(y)
     return torch.cat(outs, dim=2), state
 
@@ -389,7 +388,7 @@ def main(argv=None) -> dict:
     print(f"causality: prefix diff {pre:.2e} (==0), suffix diff {post:.3f} (>0)")
 
     # streaming (the ring step, frame by frame) == offline
-    ys, _ = model.scan_frames(None, model.init_state(1), torch.from_numpy(a).to(dev))
+    ys, _ = model.scan_frames(model.init_state(1), torch.from_numpy(a).to(dev))
     stream = float((ys - ya).abs().max())
     print(f"streaming vs offline: {stream:.2e}")
     return {"params": n_params, "macs": n_macs, "prefix_diff": pre, "suffix_diff": post,

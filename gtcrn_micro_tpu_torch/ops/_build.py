@@ -147,13 +147,6 @@ def check_ring(ring: torch.Tensor, name: str, shape: tuple,
     return ring
 
 
-def check_tile(tile: int) -> None:
-    """Raise unless ``tile`` streams per CTA is what the kernels are compiled
-    for."""
-    if tile != TILE:
-        raise ValueError(f"the kernels are compiled for tile={TILE}, got {tile}")
-
-
 def _common(kw, spec: torch.Tensor, out: torch.Tensor):
     """Check the arguments every kernel takes: ``kw`` is the
     :class:`~gtcrn_micro_tpu_torch.ops.fused_step.KernelWeights` (float32

@@ -128,7 +128,7 @@ class PackedWeights:
 
 
 def pack_weights(params, dtype=torch.float32, device=None) -> PackedWeights:
-    """Flatten the model params into the kernel's weight buffer (fixed order,
+    """Flatten the model's params into the kernel's weight buffer (fixed order,
     BN folded).  ``params`` is the nested dict of ``init_params`` (tensors)
     or of the JAX package (arrays)."""
     p = _numpy_tree(params)
@@ -384,7 +384,7 @@ def forward_plain(W: dict, spec: torch.Tensor, taps: dict):
 
 
 # ---------------------------------------------------------------------------
-# serving models (step protocol: step(params, state, spec) -> (out, state))
+# serving models (step protocol: step(state, spec) -> (out, state))
 # ---------------------------------------------------------------------------
 
 
@@ -424,11 +424,9 @@ class LayoutGTCRNMicro:
         state["step"] = 0
         return state
 
-    def step(self, params, state: dict, spec: torch.Tensor):
+    def step(self, state: dict, spec: torch.Tensor):
         """spec (B, 257, 1, 2) -> (enhanced, same shape, in the model dtype;
-        state).  ``params`` is ignored (the weights are packed in); the rings
-        are updated in place."""
-        del params
+        state).  The rings are updated in place."""
         _check_spec(spec)
         t = state["step"]
         spec_t = spec[:, :, 0, :].permute(2, 1, 0).float()  # (2, 257, B)
@@ -445,18 +443,17 @@ class LayoutGTCRNMicro:
 
 class FusedGTCRNMicro(LayoutGTCRNMicro):
     """Serving model: the whole per-frame forward as kernel B1 on CUDA
-    tensors (the plain version on CPU tensors).  ``tile`` is the number of
-    streams one CTA serves; ``launches`` counts kernel launches."""
+    tensors (the plain version on CPU tensors).  ``launches`` counts kernel
+    launches."""
 
-    def __init__(self, params, dtype=torch.float32, tile: int = _build.TILE, device=None):
-        _build.check_tile(tile)
+    def __init__(self, params, dtype=torch.float32, device=None):
         super().__init__(params, dtype, device)
         self.kernel_weights = kernel_weights(self.weights)
         self.launches = 0
 
-    def step(self, params, state: dict, spec: torch.Tensor):
+    def step(self, state: dict, spec: torch.Tensor):
         if spec.device.type == "cpu":
-            return super().step(params, state, spec)
+            return super().step(state, spec)
         if spec.device.type != "cuda":
             raise ValueError(f"no kernel for device {spec.device}")
         B = _check_spec(spec)

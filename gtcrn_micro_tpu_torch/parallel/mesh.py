@@ -1,5 +1,5 @@
-"""Data parallelism: device meshes, batch sharding, process groups, the
-cross-rank BatchNorm hook and sharded serving.
+"""Data parallelism: device meshes, batch sharding, process groups and the
+cross-rank BatchNorm hook.
 
 Counterpart of the JAX package's ``parallel/mesh.py``.  JAX runs one
 controller over a ``jax.sharding.Mesh`` and lets XLA insert the collectives.
@@ -12,10 +12,10 @@ Here:
   on the CPU).  Each rank feeds its rows of the global batch
   (:func:`shard_batch_multiprocess`); the trainer averages the gradients
   with one all-reduce, and the BatchNorms take their statistics over the
-  global batch through :class:`RankMean`, as XLA's sharded jit does;
-- serving keeps one backend per device, the weights replicated in each, and
-  splits every cohort's streams across them, with no collectives
-  (:func:`make_sharded_serving_step`, :func:`make_sharded_audio_serving_step`).
+  global batch through :class:`RankMean`, as XLA's sharded jit does.
+
+Serving over a mesh (every cohort's streams split across the devices, with
+no collectives) is ``serve.CohortServer(mesh=...)``.
 """
 
 from __future__ import annotations
@@ -179,112 +179,3 @@ class RankMean:
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         return _RankSum.apply(t, self.group) / self.world
-
-
-# ---------------------------------------------------------------------------
-# sharded serving: one backend per device, no collectives
-# ---------------------------------------------------------------------------
-
-
-def _replica(model, params, device: torch.device):
-    """The serving backend ``model`` on ``device``: itself where it lives,
-    else a copy (the layered model from its own params, a fused backend from
-    ``params``)."""
-    if canonical(model.device) == device:
-        return model
-    if hasattr(model, "from_params"):
-        return type(model).from_params(model.params(), dtype=model.dtype, device=device,
-                                       config=model.config)
-    if params is None:
-        raise ValueError(f"{type(model).__name__} is replicated from params: got None")
-    return type(model)(params, dtype=model.dtype, device=device)
-
-
-def _per_shard(batch: int, mesh: list) -> int:
-    if batch % len(mesh):
-        raise ValueError(f"batch {batch} does not divide into {len(mesh)} shards")
-    return batch // len(mesh)
-
-
-def _shards(model, mesh: list, params):
-    """(canonical mesh, one backend per shard, init_state of every shard)."""
-    mesh = [canonical(d) for d in mesh]
-    made: dict = {}
-    for d in mesh:
-        if d not in made:
-            made[d] = _replica(model, params, d)
-    backends = [made[d] for d in mesh]
-
-    def init_state(batch: int, **opts) -> list:
-        per = _per_shard(batch, mesh)
-        return [b.init_state(per, **opts) for b in backends]
-
-    return mesh, backends, init_state
-
-
-def _scatter(mesh: list, x: torch.Tensor) -> list:
-    """Contiguous equal pieces of x along dim 0, piece i on mesh[i]."""
-    if len(mesh) == 1:
-        return [x]
-    per = _per_shard(x.shape[0], mesh)
-    return [x[i * per : (i + 1) * per].to(d, non_blocking=True) for i, d in enumerate(mesh)]
-
-
-def _gather(mesh: list, outs: list) -> torch.Tensor:
-    """The shards' outputs on mesh[0], in stream order."""
-    if len(outs) == 1:
-        return outs[0]
-    return torch.cat([o.to(mesh[0], non_blocking=True) for o in outs])
-
-
-def make_sharded_serving_step(model, mesh: list, params=None):
-    """Streaming step with the stream batch split over ``mesh``.
-
-    ``model`` is a serving backend (``init_state``, ``step(params, state,
-    spec)``, ``batch_axis``); each device gets its replica (shards on one
-    device share it).  Returns ``(step, init_state, backends)``:
-
-    - ``init_state(batch, **opts)``: one state per shard, ``batch /
-      len(mesh)`` streams each, on its device;
-    - ``step(params, states, spec) -> (out, states)``: ``spec`` split along
-      dim 0, every shard's step launched before any output is read, the
-      outputs gathered on ``mesh[0]`` in stream order.
-    """
-    mesh, backends, init_state = _shards(model, mesh, params)
-
-    def step(params, states: list, spec: torch.Tensor):
-        outs = []
-        for i, (b, x) in enumerate(zip(backends, _scatter(mesh, spec))):
-            out, states[i] = b.step(params, states[i], x)
-            outs.append(out)
-        return _gather(mesh, outs), states
-
-    return step, init_state, backends
-
-
-def make_sharded_audio_serving_step(model, mesh: list, params=None, dft: str = "mxu"):
-    """Audio-in -> audio-out counterpart of :func:`make_sharded_serving_step`:
-    each shard runs its own online STFT, model step and iSTFT
-    (``dsp/stream_dsp.make_audio_step``) on its device, with its own DSP
-    state.  Returns ``(step, init_state, init_dsp, backends)``;
-    ``init_dsp(batch, dtype)`` gives one ``DspState`` per shard, and
-    ``step(params, dsps, states, chunk) -> (out, dsps, states)``."""
-    from gtcrn_micro_tpu_torch.dsp.stft import sqrt_hann_window
-    from gtcrn_micro_tpu_torch.dsp.stream_dsp import init_dsp_state, make_audio_step
-
-    mesh, backends, init_state = _shards(model, mesh, params)
-    steps = [make_audio_step(b, sqrt_hann_window(b.config.win_len, device=d), dft=dft)
-             for b, d in zip(backends, mesh)]
-
-    def init_dsp(batch: int, dtype) -> list:
-        per = _per_shard(batch, mesh)
-        return [init_dsp_state(per, dtype, d) for d in mesh]
-
-    def step(params, dsps: list, states: list, chunk: torch.Tensor):
-        outs = []
-        for i, (fn, x) in enumerate(zip(steps, _scatter(mesh, chunk))):
-            out, dsps[i], states[i] = fn(params, dsps[i], states[i], x)
-            outs.append(out)
-        return _gather(mesh, outs), dsps, states
-
-    return step, init_state, init_dsp, backends

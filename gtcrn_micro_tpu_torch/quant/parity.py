@@ -40,8 +40,8 @@ def run_parity(model, qmodel, spec: torch.Tensor) -> dict[str, float]:
     with torch.no_grad():
         fp32 = model.apply(spec)
         q = qmodel.apply(spec)
-        fp32_stream, _ = model.scan_frames(None, model.init_state(1), spec)
-        q_stream, _ = scan_stepper(qmodel.step, None, qmodel.init_state(1), spec)
+        fp32_stream, _ = model.scan_frames(model.init_state(1), spec)
+        q_stream, _ = scan_stepper(qmodel.step, qmodel.init_state(1), spec)
         wav_fp32 = istft(fp32, window).cpu().numpy()
         wav_q = istft(q, window).cpu().numpy()
         # int8-domain MAE over the output spec (reference :143-150): both

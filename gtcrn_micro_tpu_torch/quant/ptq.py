@@ -181,9 +181,9 @@ class QuantizedModel(nn.Module):
     def init_state(self, batch: int, **opts) -> dict:
         return self.model.init_state(batch, **opts)
 
-    def step(self, params, state: dict, spec):
-        """The model's step (``params`` ignored, state updated in place)."""
-        return self.model.step(params, state, spec, quant=self._quantizer())
+    def step(self, state: dict, spec):
+        """The model's step (state updated in place)."""
+        return self.model.step(state, spec, quant=self._quantizer())
 
 
 def observe_ranges(model, calib_specs, batch_size: int = 8, percentile: float = 99.99,

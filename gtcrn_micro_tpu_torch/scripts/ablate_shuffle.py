@@ -61,7 +61,7 @@ def measure(model, batch: int, rtt: float) -> tuple[float, float, float]:
     state = model.init_state(batch)
     spec = torch.zeros((batch, model.config.n_freqs, 1, 2), dtype=model.dtype,
                        device=model.device)
-    t = chain_seconds(lambda _i: model.step(None, state, spec)[0], CHAIN, rtt=rtt, warm=5)
+    t = chain_seconds(lambda _i: model.step(state, spec)[0], CHAIN, rtt=rtt, warm=5)
     return t.median, t.min, t.max
 
 

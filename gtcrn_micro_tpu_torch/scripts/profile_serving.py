@@ -115,7 +115,7 @@ def main(argv=None) -> dict:
         spec = torch.zeros((batch, 257, chunk, 2), dtype=torch.bfloat16, device=dev)
 
         def step(_i):
-            return model.step(None, state, spec)[0]
+            return model.step(state, spec)[0]
 
     rtt = measure_rtt(device=dev)
     lat = chain_seconds(step, CHAIN, repeats=1, rtt=rtt).median

@@ -43,7 +43,7 @@ def chain_latency(model, batch: int, chunk: int, rtt: float,
                        device=model.device)
 
     def step(_i):
-        return model.step(None, state, spec)[0]  # the state updates in place
+        return model.step(state, spec)[0]  # the state updates in place
 
     t = chain_seconds(step, steps, repeats=repeats, rtt=rtt, warm=5)
     return t.median / chunk, t.min / chunk, t.max / chunk

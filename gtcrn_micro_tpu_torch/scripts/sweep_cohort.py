@@ -55,7 +55,7 @@ def main(argv=None) -> dict:
         state = [model.init_state(b)]
 
         def step(_i):
-            out, state[0] = model.step(None, state[0], spec)
+            out, state[0] = model.step(state[0], spec)
             return out
 
         t = chain_seconds(step, CHAIN, rtt=rtt, warm=5)
@@ -83,7 +83,7 @@ def main(argv=None) -> dict:
     states = [model.init_state(best_b) for _ in range(k)]
 
     def rr_step(i):
-        out, states[i % k] = model.step(None, states[i % k], spec)
+        out, states[i % k] = model.step(states[i % k], spec)
         return out
 
     per_step = chain_seconds(rr_step, ROUNDS * k, repeats=1, rtt=rtt, warm=k).median

@@ -13,9 +13,9 @@ GEMMs.
     sid = srv.admit(cohort=srv.next_cohort())
     out = srv.step(cohort_idx, chunk)     # (B, 256) -> (B, 256), one hop behind
 
-The model backends, all with the step protocol ``step(params, state,
-spec)``; each declares the axis of its state that holds the stream batch
-(``batch_axis``):
+The model backends, all with the step protocol ``step(state, spec) ->
+(out, state)``; each declares the axis of its state that holds the stream
+batch (``batch_axis``):
 
 - ``GridFusedGTCRNMicro`` (the default): one launch of CUDA kernel B2;
 - ``FusedGTCRNMicro``: CUDA kernel B1;
@@ -36,16 +36,14 @@ Model states and DSP buffers update in place.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import torch
 
 from gtcrn_micro_tpu_torch import resolve_device
-from gtcrn_micro_tpu_torch.parallel.mesh import (
-    canonical,
-    make_mesh,
-    make_sharded_audio_serving_step,
-    make_sharded_serving_step,
-)
+from gtcrn_micro_tpu_torch.dsp.stft import sqrt_hann_window
+from gtcrn_micro_tpu_torch.dsp.stream_dsp import init_dsp_state, make_audio_step
+from gtcrn_micro_tpu_torch.parallel.mesh import canonical, make_mesh
 from gtcrn_micro_tpu_torch.utils.profiling import span, tracing
 
 FRAME_S = 0.016
@@ -135,6 +133,32 @@ def plan_cohorts(step_time_s: float, batch: int,
                       chunk_hops=chunk_hops)
 
 
+def _replica(model, params, device: torch.device):
+    """The serving backend ``model`` on ``device``: itself where it lives,
+    else a copy (the layered model from its own params, a fused backend from
+    ``params``)."""
+    if canonical(model.device) == device:
+        return model
+    if hasattr(model, "from_params"):
+        return type(model).from_params(model.params(), dtype=model.dtype, device=device,
+                                       config=model.config)
+    if params is None:
+        raise ValueError(f"{type(model).__name__} is replicated from params: got None")
+    return type(model)(params, dtype=model.dtype, device=device)
+
+
+class _Shard(NamedTuple):
+    """One shard: ``batch / len(mesh)`` streams of every cohort on
+    ``device``, its backend and the step that advances them: the backend's
+    ``step(state, spec) -> (out, state)`` in spec mode, ``step(dsp_state,
+    state, chunk) -> (out, dsp_state, state)``
+    (``dsp/stream_dsp.make_audio_step``) in audio mode."""
+
+    device: torch.device
+    backend: object
+    step: Callable
+
+
 class CohortServer:
     """K independent ring-state cohorts over one model backend per device.
 
@@ -149,14 +173,15 @@ class CohortServer:
 
     ``mesh``: a list of devices (``parallel.mesh.make_mesh``), given instead
     of ``device``, over which every cohort's ``batch`` streams are split
-    evenly, with no collectives (``parallel/mesh.py``): the server is on the
-    mesh's first device, where
-    ``model`` lives and chunks are given and returned, and every other
-    device gets a replica of ``model`` (shards on one device share one).
-    Each shard keeps its own state and DSP state per cohort, so a cohort's
-    state is a list with one entry per shard (one without a mesh).  Slots
-    stay numbered over the whole cohort: slot ``s`` is local slot ``s mod
-    (batch / len(mesh))`` of shard ``s // (batch / len(mesh))``.
+    evenly into shards, with no collectives: the server is on the mesh's
+    first device, where ``model`` lives and chunks are given and returned,
+    and every other device gets a replica of ``model`` (shards on one device
+    share one).  Each shard keeps its own state per cohort:
+    ``_states[c][i]`` is cohort ``c``'s model state on shard ``i`` and, in
+    audio mode, ``_dsp[c][i]`` holds its DSP state (``[dsp_state]``; ``[]``
+    in spec mode).  Slots stay numbered over the whole cohort: slot ``s`` is
+    local slot ``s mod (batch / len(mesh))`` of shard ``s // (batch /
+    len(mesh))``.
     """
 
     def __init__(self, model, params, batch: int, n_cohorts: int,
@@ -169,10 +194,10 @@ class CohortServer:
             raise ValueError(f"chunk_hops must be a power of two <= 16, got {chunk_hops}")
         if mesh is not None and device is not None:
             raise ValueError("give device or mesh, not both: the server is on mesh[0]")
-        self.mesh = [canonical(resolve_device(d)) for d in (mesh or [device])]
-        self.device = self.mesh[0]
-        if batch % len(self.mesh):
-            raise ValueError(f"batch {batch} does not divide over {len(self.mesh)} devices")
+        devices = [canonical(resolve_device(d)) for d in (mesh or [device])]
+        self.device = devices[0]
+        if batch % len(devices):
+            raise ValueError(f"batch {batch} does not divide over {len(devices)} devices")
         if model is None:
             from gtcrn_micro_tpu_torch.ops.fused_grid import GridFusedGTCRNMicro
 
@@ -184,21 +209,27 @@ class CohortServer:
             raise ValueError(f"{type(model).__name__} steps chunks of "
                              f"{model.chunk_sizes} hops, not {chunk_hops}")
         self.model = model
-        self.params = params
         self.batch = batch
         self.n_cohorts = n_cohorts
         self.dtype = dtype
         self.mode = mode
         self.chunk_hops = chunk_hops
-        if mode == "audio":
-            self._step, init_state, init_dsp, self.backends = make_sharded_audio_serving_step(
-                model, self.mesh, params, dft=dft)
-            self._dsp = [init_dsp(batch, dtype) for _ in range(n_cohorts)]
-        else:
-            self._step, init_state, self.backends = make_sharded_serving_step(
-                model, self.mesh, params)
-        self._states = [init_state(batch, dtype=dtype, **(state_opts or {}))
-                        for _ in range(n_cohorts)]
+        self._rows = batch // len(devices)  # streams a shard
+        replicas: dict = {}
+        self._shards = []
+        for d in devices:
+            if d not in replicas:
+                replicas[d] = _replica(model, params, d)
+            b = replicas[d]
+            step = (b.step if mode == "spec" else
+                    make_audio_step(b, sqrt_hann_window(b.config.win_len, device=d), dft=dft))
+            self._shards.append(_Shard(d, b, step))
+        # the DSP buffers are allocated before the rings: the rings' placement
+        # moves B2's time (~0.4 % of stream capacity on an H100 at 9 x 8192)
+        self._dsp = [[[init_dsp_state(self._rows, dtype, s.device)] if mode == "audio" else []
+                      for s in self._shards] for _ in range(n_cohorts)]
+        self._states = [[s.backend.init_state(self._rows, dtype=dtype, **(state_opts or {}))
+                         for s in self._shards] for _ in range(n_cohorts)]
         self._frames = [0] * n_cohorts
         # clean free slots (rings are zeros) and recycled free slots (rings
         # still carry a previous stream's history); admit() prefers clean
@@ -206,6 +237,11 @@ class CohortServer:
         # stream ever sees another stream's state
         self._free: list[list[int]] = [list(range(batch)) for _ in range(n_cohorts)]
         self._recycled: list[list[int]] = [[] for _ in range(n_cohorts)]
+
+    @property
+    def backends(self) -> list:
+        """The backend of each shard, in stream order."""
+        return [s.backend for s in self._shards]
 
     # -- admission ---------------------------------------------------------
 
@@ -251,14 +287,12 @@ class CohortServer:
     def _slot_rows(self, cohort: int, slot: int) -> list:
         """Views of one stream's slice of every state tensor in its shard and,
         in audio mode, of its DSP rows."""
-        shard, local = divmod(slot, self.batch // len(self.mesh))
-        axis = self.backends[shard].batch_axis
+        shard, local = divmod(slot, self._rows)
+        axis = self._shards[shard].backend.batch_axis
         rows = [v.select(axis, local) for k, v in self._states[cohort][shard].items()
                 if k != "step"]
-        if self.mode == "audio":
-            d = self._dsp[cohort][shard]
-            rows += [d.in_buf[local], d.ola_buf[local]]
-        return rows
+        return rows + [buf[local] for d in self._dsp[cohort][shard]
+                       for buf in (d.in_buf, d.ola_buf)]
 
     # -- serving -----------------------------------------------------------
 
@@ -269,19 +303,29 @@ class CohortServer:
         mode "audio": frame is (batch, 256 T) samples -> enhanced samples one
         hop behind (the first emitted hop per stream is the center trim).
 
-        Under ``torch.profiler`` the call is the span ``serve.cohort_step``
-        (request: the cohort and its frames served before the call), over
-        the spans of the DSP and model step (``dsp/stream_dsp.py``).
+        The frame is split along dim 0 into the shards' rows, every shard's
+        step is launched before any output is read, and the outputs are
+        gathered on the server's device in stream order; one shard takes
+        the frame whole.  Under ``torch.profiler`` the call is the span
+        ``serve.cohort_step`` (request: the cohort and its frames served
+        before the call), over the spans of the DSP and model step
+        (``dsp/stream_dsp.py``).
         """
         request = (cohort, self._frames[cohort]) if tracing() else None
         with span("serve.cohort_step", request):
             frame = frame.to(self.device, self.dtype)
-            if self.mode == "audio":
-                out, self._dsp[cohort], self._states[cohort] = self._step(
-                    self.params, self._dsp[cohort], self._states[cohort], frame)
-            else:
-                out, self._states[cohort] = self._step(
-                    self.params, self._states[cohort], frame)
+            # every piece is copied before any step: a copy to another device
+            # runs on the source's stream, behind the steps queued there
+            xs = ([frame] if len(self._shards) == 1 else
+                  [x.to(s.device, non_blocking=True)
+                   for s, x in zip(self._shards, frame.tensor_split(len(self._shards)))])
+            dsps, states = self._dsp[cohort], self._states[cohort]
+            outs = []
+            for i, (shard, x) in enumerate(zip(self._shards, xs)):
+                out, *dsps[i], states[i] = shard.step(*dsps[i], states[i], x)
+                outs.append(out)
+            out = (outs[0] if len(outs) == 1 else
+                   torch.cat([o.to(self.device, non_blocking=True) for o in outs]))
             self._frames[cohort] += self.chunk_hops
         return out
 

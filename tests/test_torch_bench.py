@@ -210,6 +210,6 @@ def test_measure_round_robin_on_cpu(monkeypatch):
         st, ref_st = srv._states[c][0], ref._states[c][0]
         assert st["step"] == ref_st["step"] == n % 16
         assert all(torch.equal(st[name], ref_st[name]) for name in st if name != "step")
-        assert torch.equal(srv._dsp[c][0].ola_buf, ref._dsp[c][0].ola_buf)
+        assert torch.equal(srv._dsp[c][0][0].ola_buf, ref._dsp[c][0][0].ola_buf)
         assert torch.equal(srv.outs[c], outs[c])
         assert torch.isfinite(outs[c].float()).all()

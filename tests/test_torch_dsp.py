@@ -189,7 +189,14 @@ def test_istft_chunk_mxu_bf16_rounds_once(windows, T):
 
 
 class _Gain:
-    """A stand-in model with the step protocol: halves the spectrum."""
+    """A stand-in model with the port's step protocol: halves the spectrum."""
+
+    def step(self, state, spec):
+        return spec * 0.5, state
+
+
+class _JGain:
+    """The same stand-in with the JAX package's step protocol."""
 
     def step(self, params, state, spec):
         return spec * 0.5, state
@@ -199,7 +206,7 @@ class _Gain:
 def test_audio_step_and_scan_match(windows, dft):
     jw, tw = windows
     x = _signal(batch=3, hops=10, seed=4)
-    jstep = jsd.make_audio_step(_Gain(), jw, dft=dft)
+    jstep = jsd.make_audio_step(_JGain(), jw, dft=dft)
     tstep = tsd.make_audio_step(_Gain(), tw, dft=dft)
     jd, td = jsd.init_dsp_state(3), tsd.init_dsp_state(3, device="cpu")
     jo, to = [], []
@@ -207,12 +214,12 @@ def test_audio_step_and_scan_match(windows, dft):
         c = x[:, HOP * t : HOP * (t + 1)]
         o, jd, _ = jstep(None, jd, None, jnp.asarray(c))
         jo.append(np.asarray(o))
-        o, td, _ = tstep(None, td, None, torch.from_numpy(c))
+        o, td, _ = tstep(td, None, torch.from_numpy(c))
         to.append(o.numpy())
     jo, to = np.concatenate(jo, -1), np.concatenate(to, -1)
     np.testing.assert_allclose(to, jo, atol=AUDIO_TOL)
     scan = tsd.make_audio_scan(_Gain(), tw, dft=dft)
-    so, _, _ = scan(None, tsd.init_dsp_state(3, device="cpu"), None, torch.from_numpy(x))
+    so, _, _ = scan(tsd.init_dsp_state(3, device="cpu"), None, torch.from_numpy(x))
     np.testing.assert_array_equal(so.numpy(), to)
 
 
@@ -224,7 +231,7 @@ def test_audio_step_and_scan_carry_t_hop_chunks(windows, dft):
     jw, tw = windows
     T, hops = 4, 12
     x = _signal(batch=3, hops=hops, seed=7)
-    jstep = jsd.make_audio_step(_Gain(), jw, dft=dft)
+    jstep = jsd.make_audio_step(_JGain(), jw, dft=dft)
     tstep = tsd.make_audio_step(_Gain(), tw, dft=dft)
     jd, td = jsd.init_dsp_state(3), tsd.init_dsp_state(3, device="cpu")
     jo, to = [], []
@@ -232,13 +239,13 @@ def test_audio_step_and_scan_carry_t_hop_chunks(windows, dft):
         c = x[:, HOP * t : HOP * (t + T)]
         o, jd, _ = jstep(None, jd, None, jnp.asarray(c))
         jo.append(np.asarray(o))
-        o, td, _ = tstep(None, td, None, torch.from_numpy(c))
+        o, td, _ = tstep(td, None, torch.from_numpy(c))
         assert o.shape == (3, HOP * T)
         to.append(o.numpy())
     to = np.concatenate(to, -1)
     np.testing.assert_allclose(to, np.concatenate(jo, -1), atol=AUDIO_TOL)
     scan = tsd.make_audio_scan(_Gain(), tw, dft=dft)
-    so, _, _ = scan(None, tsd.init_dsp_state(3, device="cpu"), None, torch.from_numpy(x))
+    so, _, _ = scan(tsd.init_dsp_state(3, device="cpu"), None, torch.from_numpy(x))
     np.testing.assert_allclose(so.numpy(), to, atol=AUDIO_TOL)
 
 

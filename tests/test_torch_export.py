@@ -155,7 +155,7 @@ def test_native_fp32_matches_plain_fused_step(native):
     state = plain.init_state(1)
     errs = []
     for t in range(T):
-        y, state = plain.step(None, state, torch.from_numpy(spec[:, :, t : t + 1]))
+        y, state = plain.step(state, torch.from_numpy(spec[:, :, t : t + 1]))
         errs.append(np.abs(y.numpy()[0, :, 0] - eng.step(spec[0, :, t])).max())
     assert max(errs) < 1e-5, errs
     x = (np.random.default_rng(1).standard_normal(8000) * 0.1).astype(np.float32)
@@ -172,7 +172,7 @@ def test_native_int8_matches_quantized_model(native):
     state = qm.init_state(1)
     errs, mags = [], []
     for t in range(T):
-        y, state = qm.step(None, state, torch.from_numpy(spec[:, :, t : t + 1]))
+        y, state = qm.step(state, torch.from_numpy(spec[:, :, t : t + 1]))
         errs.append(np.abs(y.numpy()[0, :, 0] - eng8.step(spec[0, :, t])).max())
         mags.append(float(y.abs().max()))
     assert max(errs) < 5e-4 * max(max(mags), 1.0), (errs, mags)

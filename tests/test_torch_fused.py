@@ -50,6 +50,7 @@ def setup():
 
 
 def _stream(step, state, spec, t0=0, t1=None, to_np=np.asarray, wrap=jnp.asarray):
+    """``step`` has the JAX package's protocol, ``step(params, state, x)``."""
     outs = []
     for t in range(t0, spec.shape[2] if t1 is None else t1):
         y, state = step(None, state, wrap(spec[:, :, t : t + 1]))
@@ -58,8 +59,8 @@ def _stream(step, state, spec, t0=0, t1=None, to_np=np.asarray, wrap=jnp.asarray
 
 
 def _port_stream(m, state, spec, t0=0, t1=None):
-    return _stream(m.step, state, spec, t0, t1, to_np=lambda y: y.numpy(),
-                   wrap=torch.from_numpy)
+    return _stream(lambda _params, s, x: m.step(s, x), state, spec, t0, t1,
+                   to_np=lambda y: y.numpy(), wrap=torch.from_numpy)
 
 
 def _state_np(state):
@@ -381,7 +382,7 @@ def test_mag_and_low_bins_pass_through(setup):
 def test_fused_step_matches_jax_fused_and_ring(setup, jax_fused):
     _model, _params, tp, spec = setup
     jout, _st10, ring = jax_fused
-    m = tfs.FusedGTCRNMicro(tp, tile=8, device="cpu")
+    m = tfs.FusedGTCRNMicro(tp, device="cpu")
     out, state = _port_stream(m, m.init_state(B), spec)
     assert out.shape == spec.shape and state["step"] == T & 15
     np.testing.assert_allclose(out, jout, atol=TOL)
@@ -392,7 +393,7 @@ def test_fused_step_matches_jax_fused_and_ring(setup, jax_fused):
 def test_grid_fused_matches_jax_grid(setup, jax_grid):
     _model, _params, tp, spec = setup
     jout, _st3 = jax_grid
-    m = GridFusedGTCRNMicro(tp, tile=8, device="cpu")
+    m = GridFusedGTCRNMicro(tp, device="cpu")
     out, _ = _port_stream(m, m.init_state(B), spec, 0, 6)
     np.testing.assert_allclose(out, jout, atol=TOL)
     assert m.launches == 0

@@ -92,7 +92,7 @@ def test_streamed_frames_match_apply(model, spec):
     assert state["dpgrnn1/h"].shape == (2, 33, 16) and state["encoder/en4/tra/h"].shape == (2, 16)
     assert state["encoder/en4/depth_conv/ring"].shape == (2, 10, 33, 16)
     assert state["decoder/de0/depth_conv/ring"].shape == (2, 10, 33, 16)
-    got, state = model.scan_frames(None, state, spec)
+    got, state = model.scan_frames(state, spec)
     assert state["step"] == 24
     assert _rel(got, want) < TOL
 
@@ -108,7 +108,7 @@ def test_chunks_match_apply(model, spec, T, ring):
     state = model.init_state(2, ring=ring)
     outs = []
     for t in range(0, n, T):
-        y, state = model.step(None, state, spec[:, :, t:t + T])
+        y, state = model.step(state, spec[:, :, t:t + T])
         outs.append(y)
     assert _rel(torch.cat(outs, dim=2), want) < TOL
     if ring:
@@ -127,7 +127,7 @@ def test_tensor_counter_indexes_rings_as_the_int_counter(model, spec, T):
         state["step"] = kind(0)
         ys = []
         for t in range(0, n, T):
-            y, state = model.step(None, state, spec[:, :, t:t + T])
+            y, state = model.step(state, spec[:, :, t:t + T])
             ys.append(y)
         assert int(state["step"]) == n % RING_PERIOD
         outs[kind] = (torch.cat(ys, dim=2), state)
@@ -139,7 +139,7 @@ def test_tensor_counter_indexes_rings_as_the_int_counter(model, spec, T):
 def test_ring_counter_runs_modulo_80(model, spec):
     state = model.init_state(1)
     for _ in range(81):
-        _, state = model.step(None, state, spec[:1, :, :1])
+        _, state = model.step(state, spec[:1, :, :1])
     assert RING_PERIOD == 80 and state["step"] == 1
 
 
@@ -185,7 +185,7 @@ def test_gtcrn_micro_tree_and_state_are_unchanged():
     assert set(state) == set(rings) | {"step"}
     assert state["gtcn2/block3/conv2/ring"].shape == (2, 16, 33, 16)
     spec = torch.randn(2, 257, 17, 2, generator=torch.Generator().manual_seed(4))
-    _, state = micro.scan_frames(None, state, spec)
+    _, state = micro.scan_frames(state, spec)
     assert state["step"] == 1
 
 

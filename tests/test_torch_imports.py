@@ -153,5 +153,5 @@ def test_cpu_wrapper_never_counts_a_launch():
 
     m = GridFusedGTCRNMicro(init_params(device="cpu"), device="cpu")
     st = m.init_state(8)
-    m.step(None, st, torch.zeros((8, 257, 1, 2)))
+    m.step(st, torch.zeros((8, 257, 1, 2)))
     assert m.launches == 0 and st["step"] == 1

@@ -123,7 +123,7 @@ def test_int8_step_matches_fake_quant_step(setup):
     for t in range(T):
         frame = torch.from_numpy(spec[:, :, t : t + 1])
         y8, st8 = serving.step(st8, frame)
-        ys, st_sim = sim.step(None, st_sim, frame)
+        ys, st_sim = sim.step(st_sim, frame)
         rows.append(_frame_checks(ys.numpy(), y8.numpy()))
     _assert_bounds(rows)
 
@@ -164,7 +164,7 @@ def test_int8_zero_point_canary(setup, monkeypatch, mutation):
         for t in range(8):
             frame = torch.from_numpy(spec[:, :, t : t + 1])
             y8, st8 = serving.step(st8, frame)
-            ys, st_sim = sim.step(None, st_sim, frame)
+            ys, st_sim = sim.step(st_sim, frame)
             worst = min(worst, _frame_checks(ys.numpy(), y8.numpy())[2])
         return worst
 

@@ -105,7 +105,7 @@ def test_host_forward_matches_plain_f32(host_lib, params, kernel):
     for _ in range(20):
         x = torch.randn((B, 257, 1, 2), generator=g) * 0.2
         yk, ks = _host_step(host_lib, kernel, kw, ks, x)
-        yp, ps = plain.step(None, ps, x)
+        yp, ps = plain.step(ps, x)
         assert (yk - yp).abs().max().item() <= 1e-4
     for name, *_ in RING_DEFS:
         assert (ks[name] - ps[name]).abs().max().item() <= 1e-4, name
@@ -124,7 +124,7 @@ def test_host_forward_bf16_within_one_step(host_lib, params, kernel):
     ks = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ps.items()}
     x = (torch.randn((B, 257, 1, 2), generator=g) * 0.2).to(torch.bfloat16)
     yk, ks = _host_step(host_lib, kernel, kw, ks, x)
-    yp, ps = plain.step(None, ps, x)
+    yp, ps = plain.step(ps, x)
     assert (yk.float() - yp.float()).abs().max().item() <= 2 ** -7 * yp.float().abs().max().item()
     for name, *_ in RING_DEFS:
         ref = ps[name].float()

@@ -40,8 +40,8 @@ def test_kernel_matches_plain(cuda, backend, batch):
     g = torch.Generator().manual_seed(1)
     for _ in range(24):
         x = (torch.randn((batch, 257, 1, 2), generator=g) * 0.2).to(cuda)
-        yk, ks = kern.step(None, ks, x)
-        yp, ps = plain.step(None, ps, x)
+        yk, ks = kern.step(ks, x)
+        yp, ps = plain.step(ps, x)
         torch.cuda.synchronize()
         assert (yk - yp).abs().max().item() <= 1e-4
     for name, *_ in RING_DEFS:
@@ -73,8 +73,8 @@ def test_kernel_bf16_within_one_step(cuda, backend):
     ps["step"] = 7
     ks = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ps.items()}
     x = (torch.randn((batch, 257, 1, 2), generator=g) * 0.2).to(cuda, torch.bfloat16)
-    yk, ks = kern.step(None, ks, x)
-    yp, ps = plain.step(None, ps, x)
+    yk, ks = kern.step(ks, x)
+    yp, ps = plain.step(ps, x)
     torch.cuda.synchronize()
     step = 2 ** -7 * yp.float().abs().max().item()
     assert (yk.float() - yp.float()).abs().max().item() <= step
@@ -93,8 +93,8 @@ def test_kernel_multi_wave_ragged(cuda, backend):
     g = torch.Generator().manual_seed(3)
     for _ in range(24):
         x = (torch.randn((batch, 257, 1, 2), generator=g) * 0.2).to(cuda)
-        yk, ks = kern.step(None, ks, x)
-        yp, ps = plain.step(None, ps, x)
+        yk, ks = kern.step(ks, x)
+        yp, ps = plain.step(ps, x)
         torch.cuda.synchronize()
         assert (yk - yp).abs().max().item() <= 1e-4
     for name, *_ in RING_DEFS:
@@ -110,12 +110,12 @@ def test_kernel_updates_rings_in_place(cuda, backend):
     batch = 64
     st = kern.init_state(batch)
     x = (torch.randn((batch, 257, 1, 2), generator=torch.Generator().manual_seed(4))).to(cuda)
-    kern.step(None, st, x)  # first launch: builds and loads the library
+    kern.step(st, x)  # first launch: builds and loads the library
     torch.cuda.synchronize()
     ptrs = {name: st[name].data_ptr() for name, *_ in RING_DEFS}
     before = {name: st[name].clone() for name, *_ in RING_DEFS}
     n0 = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
-    y, st = kern.step(None, st, x)
+    y, st = kern.step(st, x)
     torch.cuda.synchronize()
     assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] - n0 == 1  # y
     for name, *_ in RING_DEFS:

@@ -72,7 +72,7 @@ def _stream(model, state, spec, T=1):
     """The port's step over spec (B, F, N, 2) in chunks of T frames."""
     outs = []
     for t0 in range(0, spec.shape[2], T):
-        y, state = model.step(None, state, torch.from_numpy(spec[:, :, t0 : t0 + T]))
+        y, state = model.step(state, torch.from_numpy(spec[:, :, t0 : t0 + T]))
         outs.append(y.numpy())
     return np.concatenate(outs, axis=2), state
 
@@ -371,7 +371,7 @@ def test_layered_reset_slot_zeroes_axis_0(setup):
     for _ in range(2):
         srv.step(0, torch.from_numpy(rng.standard_normal((3, 1024)).astype(np.float32)))
     srv.reset_slot(0, 1)
-    d = srv._dsp[0][0]  # cohort 0, its only shard
+    (d,) = srv._dsp[0][0]  # cohort 0, its only shard
     tensors = [(k, v) for k, v in srv._states[0][0].items() if k != "step"]
     for k, v in tensors + [("in_buf", d.in_buf), ("ola_buf", d.ola_buf)]:
         assert v.shape[0] == 3, k

@@ -142,7 +142,7 @@ def test_mixed_streaming_equals_offline(setup):
     spec = torch.from_numpy(
         np.random.default_rng(1).standard_normal((1, 257, 8, 2)).astype(np.float32) * 0.3)
     offline = qm.apply(spec)
-    stream, _ = scan_stepper(qm.step, None, qm.init_state(1), spec)
+    stream, _ = scan_stepper(qm.step, qm.init_state(1), spec)
     assert float((stream - offline).abs().max()) < 1e-5
 
 

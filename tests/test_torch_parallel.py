@@ -39,6 +39,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from gtcrn_micro_tpu_torch import serve
 from gtcrn_micro_tpu_torch.models.gtcrn_micro import GTCRNMicro, flatten, init_params
 from gtcrn_micro_tpu_torch.ops.fused_step import LayoutGTCRNMicro
 from gtcrn_micro_tpu_torch.parallel import mesh, multiproc
@@ -355,6 +356,6 @@ def test_sharded_fused_backend_needs_params_off_its_device(params):
     """A backend serves the shards on its own device; a fused backend is
     replicated onto another device from the params, which must be given."""
     model = LayoutGTCRNMicro(params, device="cpu")
-    assert mesh._replica(model, None, torch.device("cpu")) is model
+    assert serve._replica(model, None, torch.device("cpu")) is model
     with pytest.raises(ValueError, match="replicated from params"):
-        mesh._replica(model, None, torch.device("meta"))
+        serve._replica(model, None, torch.device("meta"))

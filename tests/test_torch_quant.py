@@ -286,7 +286,7 @@ def test_quantized_streaming_matches_apply(setup, bits, per_channel):
     spec = torch.from_numpy(_spec((2, 257, 20, 2), 2))
     off = qm.apply(spec)
     for opts in ({}, {"l2_psum": True}):
-        stream, _ = scan_stepper(qm.step, None, qm.init_state(2, **opts), spec)
+        stream, _ = scan_stepper(qm.step, qm.init_state(2, **opts), spec)
         if bits == 16:
             assert float((stream - off).abs().max()) < 1e-5, opts
         else:

@@ -108,6 +108,13 @@ class _Gain:
     def init_state(self, batch, dtype=None):
         return {}
 
+    def step(self, state, spec):
+        return spec * 0.5, state
+
+
+class _JGain(_Gain):
+    """The same stand-in with the JAX package's step protocol."""
+
     def step(self, params, state, spec):
         return spec * 0.5, state
 
@@ -120,7 +127,7 @@ def test_audio_server_bf16_matches_jax():
     float32 audio bound 2e-6 of JAX's."""
     rng = np.random.default_rng(6)
     x = rng.standard_normal((COHORTS, BATCH, 256 * HOPS)).astype(np.float32) * 0.3
-    jsrv = JServer(_Gain(), {}, batch=BATCH, n_cohorts=COHORTS, dtype=jnp.bfloat16,
+    jsrv = JServer(_JGain(), {}, batch=BATCH, n_cohorts=COHORTS, dtype=jnp.bfloat16,
                    mode="audio")
     tsrv = CohortServer(_Gain(), None, batch=BATCH, n_cohorts=COHORTS,
                         dtype=torch.bfloat16, mode="audio", device="cpu")
@@ -168,7 +175,7 @@ def test_reset_slot_zeroes_batch_column(params):
         assert float(v[..., 1].abs().max()) == 0.0, k
         assert float(v[..., 0].abs().max()) > 0.0, k
         assert float(v[..., 2].abs().max()) > 0.0, k
-    d = srv._dsp[0][0]
+    (d,) = srv._dsp[0][0]  # cohort 0, its only shard
     for buf in (d.in_buf, d.ola_buf):
         assert float(buf[1].abs().max()) == 0.0
         assert float(buf[0].abs().max()) > 0.0 and float(buf[2].abs().max()) > 0.0
@@ -193,7 +200,7 @@ def test_slot_absmax_reads_one_stream(params, layered):
     rng = np.random.default_rng(4)
     for _ in range(3):
         srv.step(0, torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32)))
-    d = srv._dsp[0][0]
+    (d,) = srv._dsp[0][0]  # cohort 0, its only shard
 
     def direct(slot):
         vals = [float(v.select(axis, slot).abs().max()) for _, v in _ring_items(srv, 0)]
