@@ -28,7 +28,8 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
 4. serve   -- CohortServer(mode="audio", dft="mxu", bf16), batch 8192 x 2
               cohorts, 64 round-robin intervals of seeded audio on kernel
               B2 (the default backend), then 8 on kernel B1: finite output,
-              a silent slot gives exactly 0, launch counts equal the steps,
+              a silent slot gives exactly 0, launch counts equal the steps
+              (and B2's staged launches, bf16 at B % 8 == 0, all of them),
               admit/release/reset zeroes one slot's column; the served step
               timed with CUDA events, and its device time split into the
               kernel, the two GEMMs and the rest by torch.profiler, with the
@@ -2304,7 +2305,7 @@ def main() -> None:
         model = kernels[name]["cls"](params, dtype=dt, device=dev)
         srv = CohortServer(model, params, batch=BS, n_cohorts=K, dtype=dt, mode="audio",
                            dft="mxu", device=dev)
-        model.launches = 0
+        model.launches = model.staged_launches = 0
         finite, silent_max, loud = True, 0.0, 0.0
         for _ in range(n_int):
             for c in range(K):
@@ -2318,13 +2319,17 @@ def main() -> None:
                     loud = max(loud, float(out[silent[1] + 1].abs().max()))
         torch.cuda.synchronize()
         steps = n_int * K
-        ok = finite and silent_max == 0.0 and loud > 0 and model.launches == steps
+        # B2 stages its taps by tensor copies at bf16 and B % 8 == 0: every step here
+        staged = model.staged_launches if name == "fused_grid_b2" else 0
+        ok = (finite and silent_max == 0.0 and loud > 0 and model.launches == steps
+              and staged == (steps if name == "fused_grid_b2" else 0))
         say("serve", f"{name}: {n_int} intervals x {K} cohorts x {BS} streams bf16: finite "
-                     f"{finite}, silent slot max {silent_max}, launches {model.launches} for "
-                     f"{steps} steps {'ok' if ok else 'FAILED'}")
+                     f"{finite}, silent slot max {silent_max}, launches {model.launches} "
+                     f"({staged} staged) for {steps} steps {'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"serving through {name} failed its checks")
         kernels[name]["launches"] = model.launches
+        kernels[name]["staged_launches"] = staged
         if name != "fused_grid_b2":
             continue
         # admit / release / reset: the slot's column of every ring is zeroed
@@ -2415,7 +2420,8 @@ def main() -> None:
     gtcrn_phase(torch, dev, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-             "launches": k["launches"], "bench_launches": bench_launches[name],
+             "launches": k["launches"], "staged_launches": k["staged_launches"],
+             "bench_launches": bench_launches[name],
              "rest_launches": rest_launches[name],
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -43,9 +43,18 @@
 //   interleave are one stage; SFE is computed as en0 loads its input; the
 //   decoder's skip adds happen as the next layer loads its input.  32
 //   barriers per frame.
-// - Ring taps are loaded with every load of a round issued before any is
-//   used (no load waits alone in a branch), and a TCN's 32 tap values while
-//   the block before runs.
+// - Ring taps, B2 with bf16 storage and B % 8 == 0 (StagedRingIO): thread
+//   0 copies each ring-reading layer's two tap frames (and a GTConv's two
+//   TRA taps) by TMA, one 4-D tensor map a ring, into one of two 17,152-byte
+//   stage buffers as the layer before begins; the layer waits on the
+//   buffer's mbarrier, by which time the copies have landed.  The buffers
+//   take a CTA's shared memory from 177,856 to 212,240 bytes (one CTA an SM
+//   either way) and leave L1 the SM's last 28 KB, which no tap passes
+//   through any more.  Elsewhere (f32, whose stage pair of 68,608 bytes does
+//   not fit the 54,592 left; a B whose bf16 rows are not 16-byte multiples;
+//   B1) the taps are loaded from device memory with every load of a round
+//   issued before any is used (no load waits alone in a branch), and a
+//   TCN's 32 tap values while the block before runs.
 //
 // Computation is float32 whatever the storage type T (float or bf16), with
 // IEEE expf/tanhf/sqrtf and divisions (no fast-math); the tensor-core mixes
@@ -56,7 +65,8 @@
 // it, update in place), so every frame write comes after the CTA's last read
 // of that ring's tap 0: a TCN item reads then writes its own addresses; a
 // GTConv reads both taps of both its rings before its first barrier and
-// writes their frames after it.
+// writes their frames after it; staged, every thread writes a layer's
+// frames only after its wait on the layer's copies.
 
 #pragma once
 
@@ -158,30 +168,55 @@ __host__ __device__ constexpr int ring_frame(int r) {
 }
 constexpr int ENC_DW = 0, ENC_TRA = 3, DEC_DW = 6, DEC_TRA = 9, TCN = 12;
 
+// One tap frame of a ring as a CTA reads it: value i (= c * F + f, or c for a
+// TRA ring) of the CTA's stream s at p[i * stride + stream(s)]; a stream past
+// B reads the last real one (its outputs are never written).
+template <typename T>
+struct Tap {
+  const T* p;
+  size_t stride;
+  int last;
+  __device__ __forceinline__ int stream(int s) const { return s < last ? s : last; }
+};
+
+// How the forward reaches the rings, one of three IO types: tap_of(r, k, ...)
+// is tap k (0: x_{t-2d}, 1: x_{t-d}) of ring r, out(r) its new frame,
+// (*frame, B) in device memory.  stage(l, ...) and wait(l, ...) bracket the
+// staged copies of ring-reading layer l (StagedRingIO); here they do nothing.
+struct NoStaging {
+  static constexpr bool STAGED = false;
+  __device__ __forceinline__ void stage(int, int, float*) const {}
+  __device__ __forceinline__ void wait(int, float*) const {}
+};
+
 // B1: taps gathered by the caller, new frames where the caller says.
 template <typename T>
-struct TapIO {
+struct TapIO : NoStaging {
   const T* tap[2 * N_RINGS];  // per ring: x_{t-2d}, x_{t-d}; each (*frame, B)
   T* frame[N_RINGS];          // per ring: the new frame, (*frame, B)
-  __device__ __forceinline__ const T* t0(int r) const { return tap[2 * r]; }
-  __device__ __forceinline__ const T* t1(int r) const { return tap[2 * r + 1]; }
+  __device__ __forceinline__ Tap<T> tap_of(int r, int k, int b0, int B, float*) const {
+    return {tap[2 * r + k] + b0, (size_t)B, (B - b0 < TILE ? B - b0 : TILE) - 1};
+  }
   __device__ __forceinline__ T* out(int r) const { return frame[r]; }
 };
 
-// B2: the ring state itself, (L, *frame, B) per ring, and the step counter.
+// B2: the ring state itself, (L, *frame, B) per ring, and the step counter;
+// each tap read from device memory by the threads that use it.
 template <typename T>
-struct RingIO {
+struct RingIO : NoStaging {
   T* ring[N_RINGS];
   int t;
   int B;
+  __host__ __device__ __forceinline__ int slot(int r, int k) const {
+    return (t + (k ? ring_stride(r) : 0)) % ring_len(r);
+  }
   __device__ __forceinline__ T* at(int r, int slot) const {
     return ring[r] + (size_t)slot * ring_frame(r) * B;
   }
-  __device__ __forceinline__ const T* t0(int r) const { return at(r, t % ring_len(r)); }
-  __device__ __forceinline__ const T* t1(int r) const {
-    return at(r, (t + ring_stride(r)) % ring_len(r));
+  __device__ __forceinline__ Tap<T> tap_of(int r, int k, int b0, int, float*) const {
+    return {at(r, slot(r, k)) + b0, (size_t)B, (B - b0 < TILE ? B - b0 : TILE) - 1};
   }
-  __device__ __forceinline__ T* out(int r) const { return at(r, t % ring_len(r)); }
+  __device__ __forceinline__ T* out(int r) const { return at(r, slot(r, 0)); }
 };
 
 // ---------------------------------------------------------------------------
@@ -393,35 +428,151 @@ constexpr size_t SMEM_BYTES = Smem<TILE>::TOTAL * sizeof(float);
 // CTA): the kernels' __launch_bounds__, so registers do not hold fewer
 constexpr int MIN_CTAS = 233472 / (SMEM_BYTES + 1024);
 
-// Allow a kernel its dynamic shared memory on the current device.  CUDA keeps
-// function attributes per device, so this is done once per kernel and device
-// (bit d of `done`: device d; devices from 64 on set it at every launch).
+// ---------------------------------------------------------------------------
+// B2's staged ring taps (bf16 storage, B % 8 == 0)
+// ---------------------------------------------------------------------------
+//
+// The 14 ring-reading layers in order, l = 0..13: encoder GTConvs 0-2, TCNs
+// 0-7, decoder GTConvs 0-2.  Layer l's taps go to stage buffer l % 2, behind
+// the shared memory of the other kernels: its dw or TCN ring's two tap
+// frames, [c][f][s] each, then a GTConv's two TRA taps, [c][s] each, all
+// bf16; the buffers' two mbarriers follow them.
+constexpr int N_STAGED = 14;
+constexpr int STAGE_FRAME = C * F_DOWN * TILE * 2;            // 8,448 bytes
+constexpr int STAGE_TRA = H * TILE * 2;                       // 128 bytes
+constexpr int STAGE_BYTES = 2 * STAGE_FRAME + 2 * STAGE_TRA;  // 17,152 bytes
+constexpr size_t STAGE_AT = (SMEM_BYTES + 127) / 128 * 128;  // tensor copies land 128-byte aligned
+constexpr size_t STAGED_SMEM_BYTES = STAGE_AT + 2 * STAGE_BYTES + 2 * sizeof(unsigned long long);
+static_assert(STAGE_BYTES % 128 == 0 && STAGE_FRAME % 128 == 0, "stage buffers stay 128-byte aligned");
+static_assert(233472 / (STAGED_SMEM_BYTES + 1024) == MIN_CTAS, "the staged kernel keeps its CTAs an SM");
+
+// layer l's dw or TCN ring, its TRA ring (-1 for a TCN), and the layer that
+// reads ring r
+__host__ __device__ constexpr int dw_ring_of(int l) {
+  return l < 3 ? ENC_DW + l : l < 11 ? TCN + l - 3 : DEC_DW + l - 11;
+}
+__host__ __device__ constexpr int tra_ring_of(int l) {
+  return l < 3 ? ENC_TRA + l : l < 11 ? -1 : DEC_TRA + l - 11;
+}
+__host__ __device__ constexpr int layer_of(int r) {
+  return r < ENC_TRA ? r
+         : r < DEC_DW ? r - ENC_TRA
+         : r < DEC_TRA ? r - DEC_DW + 11
+         : r < TCN ? r - DEC_TRA + 11
+                   : r - TCN + 3;
+}
+
+// True where B2 takes the staged path: bf16 storage (a float32 stage pair,
+// 68,608 bytes, does not fit the 54,592 left) and ring rows of B bf16 values
+// that are 16-byte multiples, as tensor copies need.  dtype: 0 = float32,
+// 1 = bfloat16.
+inline bool staged_path(int dtype, int B) { return dtype == 1 && B % 8 == 0; }
+
+// B2 with staged taps: RingIO's rings and frames, and one tensor map per
+// ring (encode_ring_maps).  Thread 0 copies both taps of layer l + 1 (its
+// stage) as layer l begins; every thread waits on the buffer's mbarrier
+// before layer l + 1's first tap read and its frame writes, which follow
+// the copy of tap 0 as the ring contract asks.
+template <typename T>
+struct StagedRingIO : RingIO<T> {
+  static constexpr bool STAGED = true;
+  CUtensorMap map[N_RINGS];
+  __device__ __forceinline__ static char* buffer(float* sm, int l) {
+    return reinterpret_cast<char*>(sm) + STAGE_AT + (l & 1) * STAGE_BYTES;
+  }
+  __device__ __forceinline__ static unsigned long long* bar(float* sm, int l) {
+    char* bars = reinterpret_cast<char*>(sm) + STAGE_AT + 2 * STAGE_BYTES;
+    return reinterpret_cast<unsigned long long*>(bars) + (l & 1);
+  }
+  __device__ __forceinline__ Tap<T> tap_of(int r, int k, int, int, float* sm) const {
+    const char* b = buffer(sm, layer_of(r));
+    b += ring_frame(r) == H ? 2 * STAGE_FRAME + k * STAGE_TRA : k * STAGE_FRAME;
+    return {reinterpret_cast<const T*>(b), (size_t)TILE, TILE - 1};
+  }
+  // Thread 0: copy layer l's taps into its buffer, which every thread has
+  // finished reading (layer l - 2's; the CTA barrier that began layer l - 1
+  // comes after the last read); at l = 0, first set up both barriers.
+  __device__ __forceinline__ void stage(int l, int b0, float* sm) const {
+    if (threadIdx.x != 0 || l >= N_STAGED) return;
+    unsigned long long* mb = bar(sm, l);
+    if (l == 0) {
+      mbar_init(bar(sm, 0), 1);
+      mbar_init(bar(sm, 1), 1);
+    }
+    fence_proxy_async();
+    const int rd = dw_ring_of(l), rt = tra_ring_of(l);
+    mbar_expect(mb, rt < 0 ? 2 * STAGE_FRAME : STAGE_BYTES);
+    char* b = buffer(sm, l);
+    for (int k = 0; k < 2; ++k)
+      tma_load_4d(b + k * STAGE_FRAME, &map[rd], b0, 0, 0, this->slot(rd, k), mb);
+    if (rt >= 0)
+      for (int k = 0; k < 2; ++k)
+        tma_load_4d(b + 2 * STAGE_FRAME + k * STAGE_TRA, &map[rt], b0, 0, 0, this->slot(rt, k), mb);
+  }
+  // Layer l's copies have landed (its buffer's phase l / 2).
+  __device__ __forceinline__ void wait(int l, float* sm) const {
+    mbar_wait(bar(sm, l), (l >> 1) & 1);
+  }
+};
+
+// cuTensorMapEncodeTiled of the CUDA API, which the caller looks up.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// One map per bf16 ring of B streams (rings[r], (L, *frame, B)), 4-D with
+// dims innermost first: (B, 33, 16, L) with a box of (8, 33, 16, 1) for a dw
+// or TCN ring, (B, 8, 1, L) with a box of (8, 8, 1, 1) for a TRA ring, so
+// that one CTA's tap frame lands as [c][f][s]; zeros outside.  False if
+// encode refuses one.
+inline bool encode_ring_maps(EncodeTiledFn encode, void* const* rings, int B, CUtensorMap* maps) {
+  for (int r = 0; r < N_RINGS; ++r) {
+    const bool tra = ring_frame(r) == H;
+    const cuuint64_t e = 2, f = tra ? H : F_DOWN, c = tra ? 1 : C;
+    const cuuint64_t dims[4] = {(cuuint64_t)B, f, c, (cuuint64_t)ring_len(r)};
+    const cuuint64_t strides[3] = {B * e, f * B * e, c * f * B * e};  // bytes, dims 1..3
+    const cuuint32_t box[4] = {TILE, (cuuint32_t)f, (cuuint32_t)c, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    if (encode(&maps[r], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, rings[r], dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  }
+  return true;
+}
+
+// Allow a kernel its dynamic shared memory (`bytes`) on the current device.
+// CUDA keeps function attributes per device, so this is done once per kernel
+// and device (bit d of `done`: device d; devices from 64 on set it at every
+// launch).
 template <typename K>
-inline int prepare(K kernel) {
+inline int prepare(K kernel, size_t bytes = SMEM_BYTES) {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (done.load() & bit) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) done.fetch_or(bit);
   return (int)e;
 }
 
 // out[4]: registers per thread, local bytes per thread, shared bytes per CTA
-// and resident CTAs per SM of a kernel at NT threads and SMEM_BYTES.
+// and resident CTAs per SM of a kernel at NT threads and `bytes` of dynamic
+// shared memory.
 template <typename K>
-inline int kernel_attrs(K kernel, int* out) {
-  int e = prepare(kernel);
+inline int kernel_attrs(K kernel, int* out, size_t bytes = SMEM_BYTES) {
+  int e = prepare(kernel, bytes);
   cudaFuncAttributes a;
   if (!e) e = (int)cudaFuncGetAttributes(&a, kernel);
   int ctas = 0;
-  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, NT, SMEM_BYTES);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, NT, bytes);
   if (e) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)(a.sharedSizeBytes + SMEM_BYTES);
+  out[2] = (int)(a.sharedSizeBytes + bytes);
   out[3] = ctas;
   return 0;
 }
@@ -578,8 +729,8 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
   const int f = I.it / S, s = I.it % S, b = b0 + s;
   const bool live = I.valid && b < B;
   const float* wdw = w(gw.dw_w);
-  // the conv's tile: stream ts, read from the rings at stream b0 + ts, or at
-  // the last real one for a stream past B, whose outputs are never written
+  // the conv's tile: stream ts, its taps read at the IO's stream for ts (the
+  // last real one for a stream past B, whose outputs are never written)
   const Lane L;
   const int ts = L.g;
   float y[16];  // the 3x3 conv (pair-order tile): the time taps here, h's taps in b
@@ -596,26 +747,25 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
 
   // -- a: the time taps' part of the 3x3 conv; h = PReLU(pw1 @ x[:8] + b)
   if (threadIdx.x < S) {  // one thread per stream fetches its TRA taps
-    const int es = threadIdx.x, eb = b0 + es;
-    const T* e0 = io.t0(rtra);
-    const T* e1 = io.t1(rtra);
+    const int es = threadIdx.x;
+    const bool real = b0 + es < B;
+    const Tap<T> e0 = io.tap_of(rtra, 0, b0, B, sm), e1 = io.tap_of(rtra, 1, b0, B, sm);
 #pragma unroll
     for (int c = 0; c < H; ++c) {
-      e01[c * S + es] = eb < B ? to_f(e0[(size_t)c * B + eb]) : 0.f;
-      e01[(H + c) * S + es] = eb < B ? to_f(e1[(size_t)c * B + eb]) : 0.f;
+      e01[c * S + es] = real ? to_f(e0.p[c * e0.stride + es]) : 0.f;
+      e01[(H + c) * S + es] = real ? to_f(e1.p[c * e1.stride + es]) : 0.f;
     }
   }
   {
-    const T* t0 = io.t0(rdw);
-    const T* t1 = io.t1(rdw);
 #pragma unroll 1
     for (int fr = 0; fr < 2; ++fr) {  // a frame's rows, one round of loads
-      const T* tp = fr ? t1 : t0;
+      const Tap<T> tp = io.tap_of(rdw, fr, b0, B, sm);
       const Lane Lf;  // its addresses made in the loop, not held through it
-      const int bf = b0 + Lf.g < B ? b0 + Lf.g : B - 1;
+      const int sf = tp.stream(Lf.g);
       float R[24];
-      load_rows<true>(R, Lf,
-                      [&](int c, int fi) { return to_f(tp[(size_t)(c * F_DOWN + fi) * B + bf]); });
+      load_rows<true>(R, Lf, [&](int c, int fi) {
+        return to_f(tp.p[(size_t)(c * F_DOWN + fi) * tp.stride + sf]);
+      });
 #pragma unroll
       for (int kf = 0; kf < 3; ++kf) {
         float x[16];
@@ -736,35 +886,38 @@ __device__ void gtconv(const Wts& w, const GtW& gw, const IO& io, int rdw, int r
 }
 
 // A TCN's two ring taps x_{t-2d}, x_{t-d} at the lane's tile values, as
-// stored; a row or stream past the layer reads a real one, unused.  The
-// forward loads a block's taps while the block before runs, so that their
-// latency, the largest cost of a block, overlaps it.
+// stored; a row or stream past the layer reads a real one, unused.  Read
+// from device memory (B1, and B2 unstaged), the forward loads a block's taps
+// while the block before runs, so that their latency, the largest cost of a
+// block, overlaps it; staged, the block reads them from its stage buffer.
 template <typename T>
 struct TcnTaps {
   T v0[16], v1[16];
 };
 template <typename T, class IO>
-__device__ __forceinline__ void load_taps(TcnTaps<T>& tp, const IO& io, int r, int b0, int B) {
+__device__ __forceinline__ void load_taps(TcnTaps<T>& tp, const IO& io, int r, int b0, int B,
+                                          float* sm) {
   const Lane L;
-  const int b = b0 + L.g < B ? b0 + L.g : B - 1;
-  const T* t0 = io.t0(r);
-  const T* t1 = io.t1(r);
+  const Tap<T> t0 = io.tap_of(r, 0, b0, B, sm), t1 = io.tap_of(r, 1, b0, B, sm);
+  const int s = t0.stream(L.g);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const size_t gi = (size_t)(L.c<true>(j) * F_DOWN + clamp0(L.f(j), F_DOWN)) * B + b;
-    tp.v0[j] = t0[gi];
-    tp.v1[j] = t1[gi];
+    const size_t i = (size_t)(L.c<true>(j) * F_DOWN + clamp0(L.f(j), F_DOWN)) * t0.stride + s;
+    tp.v0[j] = t0.p[i];
+    tp.v1[j] = t1.p[i];
   }
 }
 
 // Residual TCN block on (16, 33), one stage in registers on tensor cores:
 // x = PReLU(pw3 @ PReLU(dw(x_{t-2d}, x_{t-d}, h)) + b + x) with
 // h = PReLU(pw1 @ x + b), x the warp's pair-order tile of the trunk (its
-// rows past the layer unused), the taps loaded a block ahead.  It writes the
-// ring's new frame h where it read tap 0, each value by the thread that read it.
+// rows past the layer unused), the taps loaded a block ahead (or, staged,
+// from the stage buffer here).  It writes the ring's new frame h where it
+// read tap 0, each value by the thread that read it (staged: after the
+// layer's copies have landed).
 template <typename T, class IO>
 __device__ void tcn(const Wts& w, const TcnW& o, const IO& io, int r, float (&x)[16],
-                    const TcnTaps<T>& tp, int b0, int B) {
+                    TcnTaps<T>& tp, int b0, int B, float* sm) {
   const Lane L;
   const int b = b0 + L.g;
   float h[16];
@@ -781,6 +934,7 @@ __device__ void tcn(const Wts& w, const TcnW& o, const IO& io, int r, float (&x)
         fr[(size_t)(L.c<true>(j) * F_DOWN + L.f(j)) * B + b] = from_f<T>(h[j]);
     }
   }
+  if constexpr (IO::STAGED) load_taps(tp, io, r, b0, B, sm);
   {
     const float* dww = w(o.dw_w);
     const float* bdw = w(o.dw_b);
@@ -901,6 +1055,7 @@ __device__ void forward(const float* __restrict__ W, const Plan& p, const T* __r
   float* x0 = mag + F_FULL * S;      // ERB features (3, 129)
   float* x = sm + M::TRUNK;
 
+  io.stage(0, b0, sm);  // the first GTConv's taps, a frame's spectrum ahead
   stage_group<S>(W, p, sm, 0);
   for (int it = threadIdx.x; it < S * F_FULL; it += NT) {
     const int s = it / F_FULL, f = it % F_FULL, b = b0 + s;
@@ -925,6 +1080,8 @@ __device__ void forward(const float* __restrict__ W, const Plan& p, const T* __r
 #pragma unroll 1
   for (int i = 0; i < 3; ++i) {
     w = advance<S>(W, p, sm, 2 + i);
+    io.stage(i + 1, b0, sm);
+    io.wait(i, sm);
     gtconv<T, S, false>(w, o.enc[i], io, ENC_DW + i, ENC_TRA + i, sm + M::skip(1 + i), nullptr,
                         sm + M::skip(2 + i), sm, b0, B);
   }
@@ -936,17 +1093,21 @@ __device__ void forward(const float* __restrict__ W, const Plan& p, const T* __r
 #pragma unroll 1
   for (int i = 0; i < 8; ++i) {
     w = advance<S>(W, p, sm, 5 + i);
+    io.stage(4 + i, b0, sm);
+    io.wait(3 + i, sm);
     if (i == 0) {
-      load_taps(cur, io, TCN, b0, B);
+      if constexpr (!IO::STAGED) load_taps(cur, io, TCN, b0, B, sm);
       const Lane L;
       const float* x4 = sm + M::skip(4);
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         xt[j] = x4[(L.c<true>(j) * F_DOWN + clamp0(L.f(j), F_DOWN)) * S + L.g];
     }
-    if (i < 7) load_taps(nxt, io, TCN + i + 1, b0, B);
-    tcn<T>(w, o.tcn[i], io, TCN + i, xt, cur, b0, B);
-    cur = nxt;
+    if constexpr (!IO::STAGED) {
+      if (i < 7) load_taps(nxt, io, TCN + i + 1, b0, B, sm);
+    }
+    tcn<T>(w, o.tcn[i], io, TCN + i, xt, cur, b0, B, sm);
+    if constexpr (!IO::STAGED) cur = nxt;
   }
   {
     const Lane L;
@@ -960,6 +1121,8 @@ __device__ void forward(const float* __restrict__ W, const Plan& p, const T* __r
 #pragma unroll 1
   for (int i = 0; i < 3; ++i) {
     w = advance<S>(W, p, sm, 13 + i);
+    io.stage(12 + i, b0, sm);
+    io.wait(11 + i, sm);
     gtconv<T, S, true>(w, o.dec[i], io, DEC_DW + i, DEC_TRA + i, x, sm + M::skip(4 - i), x, sm,
                        b0, B);
   }

@@ -43,14 +43,17 @@ _SIGNATURES = {
     "fused_step": ("gtcrn_fused_step_b1",
                    [_I, _P, ctypes.POINTER(_I), _I, _P, _P, _PP, _PP, _I, _P]),
     # int gtcrn_fused_grid_b2(dtype, W, offsets, wlen, spec, out,
-    #                         rings[20], t, B, stream)
+    #                         rings[20], t, B, stream, int* staged)
     "fused_grid": ("gtcrn_fused_grid_b2",
-                   [_I, _P, ctypes.POINTER(_I), _I, _P, _P, _PP, _I, _I, _P]),
+                   [_I, _P, ctypes.POINTER(_I), _I, _P, _P, _PP, _I, _I, _P,
+                    ctypes.POINTER(_I)]),
 }
-# int gtcrn_<source>_attrs(int out[8]): per dtype (float32, bfloat16) the
+# int gtcrn_<source>_attrs(int out[4 * n]): per instantiation (_KINDS) the
 # kernel's registers per thread, local bytes per thread, shared bytes per CTA
 # and resident CTAs per SM
 _ATTRS = ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")
+_KINDS = {"fused_step": ("float32", "bfloat16"),
+          "fused_grid": ("float32", "bfloat16", "bfloat16_staged")}
 
 _libs: dict = {}
 _attr_fns: dict = {}
@@ -121,15 +124,17 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def kernel_attrs(name: str) -> dict:
-    """What the compiled kernel of source ``name`` uses, per storage dtype:
+    """What the compiled kernel of source ``name`` uses, per instantiation:
     ``{"float32": {"regs", "local_bytes", "smem_bytes", "ctas_per_sm"},
-    "bfloat16": {...}}`` from cudaFuncGetAttributes and
+    "bfloat16": {...}}``, and for B2 ``"bfloat16_staged"`` (its staged
+    taps), from cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
     _load(name)
-    vals = (ctypes.c_int * 8)()
+    kinds = _KINDS[name]
+    vals = (ctypes.c_int * (4 * len(kinds)))()
     _raise_on(_attr_fns[name](vals), f"gtcrn_{name}_attrs")
-    return {dt: dict(zip(_ATTRS, vals[4 * i : 4 * i + 4]))
-            for i, dt in enumerate(("float32", "bfloat16"))}
+    return {kind: dict(zip(_ATTRS, vals[4 * i : 4 * i + 4]))
+            for i, kind in enumerate(kinds)}
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -184,13 +189,17 @@ def launch_b1(kw, spec, out, taps: list, frames: list) -> None:
     _raise_on(code, "gtcrn_fused_step_b1")
 
 
-def launch_b2(kw, spec, out, rings: list, t: int) -> None:
+def launch_b2(kw, spec, out, rings: list, t: int) -> bool:
     """Kernel B2: reads each ring's taps at slots (t mod L, (t+d) mod L) and
-    writes the new frame at slot t mod L in place."""
+    writes the new frame at slot t mod L in place.  Returns whether the
+    launch staged the taps in shared memory by tensor copies, which the C
+    entry does for bf16 storage with B a multiple of 8."""
     dt, offs, wlen, stream = _common(kw, spec, out)
     ring_arr = (ctypes.c_void_p * len(rings))(*[r.data_ptr() for r in rings])
     fn = _load("fused_grid")
+    staged = ctypes.c_int(0)
     with torch.cuda.device(spec.device):
         code = fn(dt, _ptr(kw.buf), offs, wlen, _ptr(spec), _ptr(out),
-                  ring_arr, t, spec.shape[0], stream)
+                  ring_arr, t, spec.shape[0], stream, ctypes.byref(staged))
     _raise_on(code, "gtcrn_fused_grid_b2")
+    return bool(staged.value)

@@ -4,11 +4,14 @@
 // (fused_grid.cu), host_mix runs one warp's channel mix alone and
 // host_mma_products counts the warps' mma products.  Shared memory is filled
 // with NaN before each CTA, so a read of a value no thread has written shows
-// up in the output.  Built and driven by tests/test_torch_kernel_host.py.
+// up in the output.  B2 takes the staged path where the card's entry does
+// (staged_path), its tensor maps made by emu_encode_tiled.  Built and driven
+// by tests/test_torch_kernel_host.py.
 #include <math.h>
 #include <stdlib.h>
 
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 #include "gtcrn_forward.cuh"
@@ -19,9 +22,10 @@ thread_local std::barrier<>* emu_cta_barrier;
 using namespace gtcrn;
 
 template <typename T, class IO>
-static void run(const float* W, const Plan& p, const T* spec, T* out, const IO& io, int B) {
-  const size_t n = SMEM_BYTES / sizeof(float);
-  float* sm = static_cast<float*>(aligned_alloc(64, (SMEM_BYTES + 63) / 64 * 64));
+static void run(const float* W, const Plan& p, const T* spec, T* out, const IO& io, int B,
+                size_t bytes = SMEM_BYTES) {
+  const size_t n = bytes / sizeof(float);
+  float* sm = static_cast<float*>(aligned_alloc(128, (bytes + 127) / 128 * 128));
   for (int blk = 0; blk < (B + TILE - 1) / TILE; ++blk) {
     for (size_t i = 0; i < n; ++i) sm[i] = NAN;
     std::barrier<> cta(NT);
@@ -41,20 +45,62 @@ static void run(const float* W, const Plan& p, const T* spec, T* out, const IO& 
   free(sm);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; the arguments of gtcrn_fused_grid_b2.
+// cuTensorMapEncodeTiled for the emulated copies: the map of a tiled
+// tensor, refused (as by the CUDA API) unless its base and strides are
+// 16-byte aligned, its box is 1..256 elements a dim with inner rows of a
+// 16-byte multiple, and element strides are 1.
+static CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType type, cuuint32_t rank,
+                                 void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                                 const cuuint32_t* box, const cuuint32_t* elem_strides,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill) {
+  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank < 1 || rank > 4 ||
+      reinterpret_cast<uintptr_t>(base) % 16)
+    return CUDA_ERROR_INVALID_VALUE;
+  *m = CUtensorMap{};
+  m->base = static_cast<const char*>(base);
+  m->rank = rank;
+  m->elem = 2;
+  for (cuuint32_t i = 0; i < 4; ++i) {
+    m->dims[i] = i < rank ? dims[i] : 1;
+    m->box[i] = i < rank ? box[i] : 1;
+    if (i < rank && (dims[i] < 1 || box[i] < 1 || box[i] > 256 || elem_strides[i] != 1))
+      return CUDA_ERROR_INVALID_VALUE;
+    if (i + 1 < rank) {
+      if (strides[i] % 16) return CUDA_ERROR_INVALID_VALUE;
+      m->strides[i] = strides[i];
+    }
+  }
+  return (box[0] * m->elem) % 16 ? CUDA_ERROR_INVALID_VALUE : CUDA_SUCCESS;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; the arguments of gtcrn_fused_grid_b2
+// but the stream.  *staged as there.
 extern "C" int host_fused_grid_b2(int dtype, const float* W, const int* offs, int wlen,
-                                  const void* spec, void* out, void* const* rings, int t, int B) {
+                                  const void* spec, void* out, void* const* rings, int t, int B,
+                                  int* staged) {
   Plan p;
   if (B <= 0 || t < 0 || t > 15 || !make_plan(offs, wlen, &p)) return 1;
-  auto go = [&](auto zero) {
-    using T = decltype(zero);
-    RingIO<T> io;
+  auto go = [&](auto& io, size_t bytes) {
+    using T = std::decay_t<decltype(*io.ring[0])>;
     for (int r = 0; r < N_RINGS; ++r) io.ring[r] = static_cast<T*>(rings[r]);
     io.t = t;
     io.B = B;
-    run<T>(W, p, static_cast<const T*>(spec), static_cast<T*>(out), io, B);
+    run<T>(W, p, static_cast<const T*>(spec), static_cast<T*>(out), io, B, bytes);
   };
-  if (dtype == 0) go(0.f); else go(__nv_bfloat16());
+  const bool st = staged_path(dtype, B);
+  if (staged) *staged = st;
+  if (st) {
+    StagedRingIO<__nv_bfloat16> io;
+    if (!encode_ring_maps(emu_encode_tiled, rings, B, io.map)) return 1;
+    go(io, STAGED_SMEM_BYTES);
+  } else if (dtype == 1) {
+    RingIO<__nv_bfloat16> io;
+    go(io, SMEM_BYTES);
+  } else {
+    RingIO<float> io;
+    go(io, SMEM_BYTES);
+  }
   return 0;
 }
 

@@ -6,7 +6,10 @@ tests/kernel_host/ (one std::thread per CUDA thread, a std::barrier per
 __syncthreads, a cp.async copy whose destination reads as NaN until the
 issuing thread's next wait, shared memory filled with NaN before each CTA,
 TF32 rounding and a warp's mma.sync product through a barrier of its 32
-threads), with the two C entries of kernels B1 and B2 and one warp's
+threads; a tensor copy whose destination reads as NaN until every thread
+has reached its wait on the copy's mbarrier, when it lands), with the two C
+entries of kernels B1 and B2 (B2's staged path for bf16 at B % 8 == 0, its
+tensor maps checked against cuTensorMapEncodeTiled's alignment rules) and one warp's
 channel mix (host_mix).  So the kernels' indexing,
 staging, barriers, ring contract and weight-layout checks, and the
 per-device shared-memory attribute of prepare(), are tested here without a
@@ -58,7 +61,7 @@ def host_lib(tmp_path_factory):
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
     lib.host_fused_grid_b2.argtypes = [_I, _P, ctypes.POINTER(_I), _I, _P, _P,
-                                       ctypes.POINTER(_P), _I, _I]
+                                       ctypes.POINTER(_P), _I, _I, ctypes.POINTER(_I)]
     lib.host_fused_step_b1.argtypes = [_I, _P, ctypes.POINTER(_I), _I, _P, _P,
                                        ctypes.POINTER(_P), ctypes.POINTER(_P), _I]
     lib.host_mix.argtypes = [_P, _P, _P, _I, _I]
@@ -71,9 +74,10 @@ def params():
     return init_params(torch.Generator().manual_seed(0), device="cpu")
 
 
-def _host_step(lib, kernel, kw, state, spec):
+def _host_step(lib, kernel, kw, state, spec, staged=None):
     """One step of kernel B1 or B2 on the host, rings updated in place as the
-    wrappers of ops/fused_step.py and ops/fused_grid.py do it."""
+    wrappers of ops/fused_step.py and ops/fused_grid.py do it; B2 asserts
+    that it took (``staged`` True) or did not take the staged path."""
     spec = spec.contiguous()
     out = torch.empty_like(spec)
     t = state["step"]
@@ -82,7 +86,10 @@ def _host_step(lib, kernel, kw, state, spec):
     args = (code, kw.buf.data_ptr(), offs, kw.buf.numel(), spec.data_ptr(), out.data_ptr())
     if kernel == "b2":
         rings = (_P * len(RING_DEFS))(*[state[n].data_ptr() for n, *_ in RING_DEFS])
-        rc = lib.host_fused_grid_b2(*args, rings, t, spec.shape[0])
+        took = _I(-1)
+        rc = lib.host_fused_grid_b2(*args, rings, t, spec.shape[0], ctypes.byref(took))
+        if staged is not None:
+            assert took.value == int(staged)
     else:
         taps = []
         for n, L, d, _shape in RING_DEFS:
@@ -112,23 +119,40 @@ def test_host_forward_matches_plain_f32(host_lib, params, kernel):
     assert ks["step"] == ps["step"] == 20 & 15
 
 
-@pytest.mark.parametrize("kernel", ["b1", "b2"])
-def test_host_forward_bf16_within_one_step(host_lib, params, kernel):
+def _bf16_one_step(lib, params, kernel, batch, step, staged=None):
+    """One bf16 step of the kernel from a random ring state: every output and
+    ring value within one bf16 step (2^-7) of the largest magnitude of the
+    plain version's."""
     plain = LayoutGTCRNMicro(params, dtype=torch.bfloat16, device="cpu")
     kw = kernel_weights(plain.weights)
     g = torch.Generator().manual_seed(2)
-    ps = plain.init_state(B)
+    ps = plain.init_state(batch)
     for name, *_ in RING_DEFS:
         ps[name].copy_(torch.rand(ps[name].shape, generator=g).mul_(0.6).sub_(0.3))
-    ps["step"] = 11
+    ps["step"] = step
     ks = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ps.items()}
-    x = (torch.randn((B, 257, 1, 2), generator=g) * 0.2).to(torch.bfloat16)
-    yk, ks = _host_step(host_lib, kernel, kw, ks, x)
+    x = (torch.randn((batch, 257, 1, 2), generator=g) * 0.2).to(torch.bfloat16)
+    yk, ks = _host_step(lib, kernel, kw, ks, x, staged)
     yp, ps = plain.step(ps, x)
     assert (yk.float() - yp.float()).abs().max().item() <= 2 ** -7 * yp.float().abs().max().item()
     for name, *_ in RING_DEFS:
         ref = ps[name].float()
         assert (ks[name].float() - ref).abs().max().item() <= 2 ** -7 * ref.abs().max().item(), name
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_host_forward_bf16_within_one_step(host_lib, params, kernel):
+    """B = 13: B2 reads each tap from the rings (B % 8 != 0)."""
+    _bf16_one_step(host_lib, params, kernel, B, 11, staged=False if kernel == "b2" else None)
+
+
+@pytest.mark.parametrize("batch", [16, 24])
+def test_host_forward_bf16_staged_within_one_step(host_lib, params, batch):
+    """B2's staged path (bf16, B % 8 == 0): every ring-reading layer's taps
+    copied into shared memory by tensor copies a layer ahead, read only after
+    the layer's wait; at step 13, so that the copies' slot coordinates are
+    others than at the B = 13 case's step 11."""
+    _bf16_one_step(host_lib, params, "b2", batch, 13, staged=True)
 
 
 
@@ -230,7 +254,7 @@ def test_host_make_plan_refuses_bad_layout(host_lib, params, case):
 
     def rc(offs, wlen):
         return host_lib.host_fused_grid_b2(0, kw.buf.data_ptr(), (_I * len(offs))(*offs), wlen,
-                                           spec.data_ptr(), out.data_ptr(), rings, 0, 1)
+                                           spec.data_ptr(), out.data_ptr(), rings, 0, 1, None)
 
     assert rc(list(kw.offsets), kw.buf.numel()) == 0
     assert rc(*_bad_layout(case, kw)) == 1

@@ -60,12 +60,12 @@ def _models(cuda, backend, dtype):
 
 
 @pytest.mark.parametrize("backend", ["fused_step", "fused_grid"])
-def test_kernel_bf16_within_one_step(cuda, backend):
-    """bf16 storage, one step from a random state at 2,000 streams: every
-    output and ring value within one bf16 step (2^-7) of the largest
-    magnitude of the plain version's."""
+@pytest.mark.parametrize("batch", [2000, 2003])  # B2: staged taps at 2,000, not at 2,003
+def test_kernel_bf16_within_one_step(cuda, backend, batch):
+    """bf16 storage, one step from a random state: every output and ring
+    value within one bf16 step (2^-7) of the largest magnitude of the plain
+    version's.  B2 stages its taps by tensor copies where B % 8 == 0."""
     kern, plain = _models(cuda, backend, torch.bfloat16)
-    batch = 2000
     g = torch.Generator().manual_seed(2)
     ps = plain.init_state(batch)
     for name, *_ in RING_DEFS:
@@ -81,6 +81,8 @@ def test_kernel_bf16_within_one_step(cuda, backend):
     for name, *_ in RING_DEFS:
         ref = ps[name].float()
         assert (ks[name].float() - ref).abs().max().item() <= 2 ** -7 * ref.abs().max().item(), name
+    if backend == "fused_grid":
+        assert (kern.launches, kern.staged_launches) == (1, int(batch % 8 == 0))
 
 
 @pytest.mark.parametrize("backend", ["fused_step", "fused_grid"])
@@ -102,14 +104,16 @@ def test_kernel_multi_wave_ragged(cuda, backend):
 
 
 @pytest.mark.parametrize("backend", ["fused_step", "fused_grid"])
-def test_kernel_updates_rings_in_place(cuda, backend):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_updates_rings_in_place(cuda, backend, dtype):
     """A step allocates its output and nothing else (B1 passes each ring's
-    tap-0 slot as the frame's destination: no frame tensors, no copies), and
-    every ring keeps its storage."""
-    kern, _plain = _models(cuda, backend, torch.float32)
+    tap-0 slot as the frame's destination: no frame tensors, no copies; B2's
+    staged path, bf16 here, encodes its tensor maps on the host), and every
+    ring keeps its storage."""
+    kern, _plain = _models(cuda, backend, dtype)
     batch = 64
     st = kern.init_state(batch)
-    x = (torch.randn((batch, 257, 1, 2), generator=torch.Generator().manual_seed(4))).to(cuda)
+    x = (torch.randn((batch, 257, 1, 2), generator=torch.Generator().manual_seed(4))).to(cuda, dtype)
     kern.step(st, x)  # first launch: builds and loads the library
     torch.cuda.synchronize()
     ptrs = {name: st[name].data_ptr() for name, *_ in RING_DEFS}
@@ -121,13 +125,20 @@ def test_kernel_updates_rings_in_place(cuda, backend):
     for name, *_ in RING_DEFS:
         assert st[name].data_ptr() == ptrs[name], name
         assert not torch.equal(st[name], before[name]), name
+    if backend == "fused_grid":
+        assert kern.staged_launches == (2 if dtype == torch.bfloat16 else 0)
 
 
 @pytest.mark.parametrize("lib", ["fused_step", "fused_grid"])
 def test_kernel_attrs_no_spills(cuda, lib):
-    """Both instantiations of the kernel use no local memory (no spills, no
-    stack frame)."""
+    """Every instantiation of the kernel (float32, bf16, and B2's staged
+    bf16) uses no local memory (no spills, no stack frame), at most the
+    232,448 bytes of shared memory a CTA may have, and runs one CTA an SM."""
     from gtcrn_micro_tpu_torch.ops import _build
 
-    for dt, a in _build.kernel_attrs(lib).items():
-        assert a["local_bytes"] == 0, dt
+    attrs = _build.kernel_attrs(lib)
+    assert len(attrs) == (3 if lib == "fused_grid" else 2)
+    for kind, a in attrs.items():
+        assert a["local_bytes"] == 0, kind
+        assert a["smem_bytes"] <= 232448, kind
+        assert a["ctas_per_sm"] == 1, kind
