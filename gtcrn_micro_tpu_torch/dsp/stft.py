@@ -65,6 +65,16 @@ def sqrt_hann_window(win_length: int, dtype=torch.float32, device=None) -> torch
     return torch.from_numpy(w).to(resolve_device(device), dtype)
 
 
+def window_of(kind: str, win_length: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The window a model names: ``"sqrt_hann"`` (GTCRN-Micro, GTCRN) or
+    ``"hann"`` (TF-GridNet), periodic."""
+    if kind == "sqrt_hann":
+        return sqrt_hann_window(win_length, dtype, device)
+    if kind == "hann":
+        return hann_window(win_length, dtype, device)
+    raise ValueError(f"unknown window {kind!r}")
+
+
 def stft(x: torch.Tensor, window: torch.Tensor, n_fft: int = 512,
          hop_len: int = 256, win_len: int = 512) -> torch.Tensor:
     """STFT of ``x`` (..., num_samples) -> (..., F, T, 2) real/imag."""
@@ -123,13 +133,32 @@ def ola_envelope(window: torch.Tensor, n_frames: int, length: int,
     return env
 
 
+def ola_envelope_rows(window: torch.Tensor, frames: torch.Tensor, n_frames: int,
+                      length: int, hop_len: int = 256) -> torch.Tensor:
+    """Each row's own :func:`ola_envelope`, (rows, length): the squared
+    window overlap-added over the row's first ``frames[r]`` of ``n_frames``
+    frames (``frames`` (rows,) int64 on the window's device), as
+    ``torch.istft`` builds it for a clip of that many frames alone.  Built on
+    the device with no read back to the host; where no frame of a row covers
+    a sample (past the row's own end) it is 1, so the zero frames there give
+    zeros.  For a Hann or sqrt-Hann window at hop ``n_fft / 2`` it is at
+    least 0.5 everywhere else, so it needs no check."""
+    n_fft = window.shape[0]
+    start = n_fft // 2
+    live = torch.arange(n_frames, device=window.device) < frames[:, None]  # (rows, T)
+    w2 = window.pow(2)[None, :, None] * live[:, None, :]
+    env = _overlap_add(w2, hop_len)[:, start : start + length]
+    return torch.where(env > 0, env, 1.0)
+
+
 def istft_ola(spec: torch.Tensor, window: torch.Tensor, length: int,
               envelope: torch.Tensor, hop_len: int = 256) -> torch.Tensor:
     """:func:`istft` of (..., F, T, 2) or complex (..., F, T) to ``length``
     samples, with the envelope of :func:`ola_envelope` for this T and
-    ``length``: ``torch.istft``'s steps (inverse real FFT of ``n_fft =
-    window`` length, synthesis window, overlap-add, division by the envelope,
-    centre trim), with no read back to the host."""
+    ``length`` (or each row's own, :func:`ola_envelope_rows`):
+    ``torch.istft``'s steps (inverse real FFT of ``n_fft = window`` length,
+    synthesis window, overlap-add, division by the envelope, centre trim),
+    with no read back to the host."""
     if not spec.is_complex():
         spec = torch.view_as_complex(spec.contiguous())
     n_fft = window.shape[0]

@@ -2,16 +2,24 @@
 
 ``python -m gtcrn_micro_tpu_torch.eval.infer -C configs/cfg_infer.yaml``
 
-Per wav: read -> resample to 16 kHz -> sqrt-Hann STFT -> the layered model's
-offline forward -> iSTFT -> length-match to clean -> write ``<uid>_enh.wav``;
-writes the ``inf.scp`` / ``ref.scp`` manifests the reference's eval stack
-reads (infer.py:113-119).
+Per wav: read -> resample to 16 kHz -> STFT -> the layered model's offline
+forward -> iSTFT -> length-match to clean -> write ``<uid>_enh.wav``; writes
+the ``inf.scp`` / ``ref.scp`` manifests the reference's eval stack reads
+(infer.py:113-119).  The STFT's size, hop and window, and whether the input
+is scaled by its standard deviation, are the model's (``stft_config``,
+``window``, ``scale_by_std``): GTCRN-Micro and GTCRN take a 512-sample
+sqrt-Hann window at a 256-sample hop, TF-GridNet a 256-sample Hann window
+at a 128-sample hop and its input over its standard deviation.
 
 As in the JAX package, wavs are padded to power-of-two frame buckets and
 batched within a bucket.  Each wav's tail is reflect-padded (torch.stft
-``center=True``) before the bucket's zero pad, so a wav enhanced in a batch
-matches the wav enhanced alone except for the overlap-add of the padding
-frames into its last ~2 hops.
+``center=True``) before the bucket's zero pad.  For a ``causal`` model
+(GTCRN-Micro, GTCRN) no frame reads a later one, so a wav enhanced in a
+batch matches the wav enhanced alone except for the overlap-add of the
+padding frames into its last ~2 hops.  A model that is not causal
+(TF-GridNet) gets each row's own frame count, and each wav's output is the
+wav enhanced alone: its standard deviation over its own samples, its frames
+past its own zeroed, and the iSTFT's envelope of its own frames.
 
 On a card each batch shape (rows, samples, sample dtype) runs its scale,
 STFT, forward and iSTFT as one CUDA graph: the first batch of a shape runs
@@ -34,7 +42,13 @@ import torch
 from torch import nn
 
 from gtcrn_micro_tpu_torch import resolve_device
-from gtcrn_micro_tpu_torch.dsp.stft import istft_ola, ola_envelope, sqrt_hann_window, stft
+from gtcrn_micro_tpu_torch.dsp.stft import (
+    istft_ola,
+    ola_envelope,
+    ola_envelope_rows,
+    stft,
+    window_of,
+)
 from gtcrn_micro_tpu_torch.io.wav import (
     extract_fileid,
     read_pcm16_into,
@@ -58,9 +72,9 @@ def _bucket_frames(n_frames: int, min_bucket: int = 64) -> int:
 
 def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
                  progress: bool = True) -> dict[str, np.ndarray]:
-    """Enhance wavs with ``model`` (a layered ``GTCRNMicro`` or ``GTCRN`` on
-    ``device``, or a ``quant.ptq.QuantizedModel``) in bucket-padded batches; returns
-    path -> float32 waveform at 16 kHz.
+    """Enhance wavs with ``model`` (a layered model of ``models/registry.py``
+    on ``device``, or a ``quant.ptq.QuantizedModel``) in bucket-padded
+    batches, at the model's STFT; returns path -> float32 waveform at 16 kHz.
 
     The lengths come from the wavs' headers, and the wavs are read batch by
     batch: the host reads and assembles a batch while the device runs the
@@ -78,8 +92,10 @@ def enhance_wavs(model, wav_paths: list[str], batch_size: int = 8, device=None,
     ``infer.forward`` (scale, STFT, ``apply``, iSTFT and the copy back
     enqueued, or on a card the copies and the replay; the wait for the copy
     back is the call's own time); the counters ``infer.frames`` (each wav's
-    own frames) and ``infer.frames_computed`` (bucket frames times rows),
-    and on a card ``infer.frames_graphed`` (bucket frames times rows of a
+    own frames at the model's hop), ``infer.frames_computed`` (bucket frames
+    times rows) and ``infer.frame_pairs`` (rows times bucket frames squared:
+    the query-key pairs of a full-band attention over the batch), and on a
+    card ``infer.frames_graphed`` (bucket frames times rows of a
     batch run as a replay, 0 for a shape's first) and
     ``infer.graph_captures`` (one a capture)
     (``utils/profiling.span``, ``count``)."""
@@ -111,38 +127,62 @@ def _read_16k(path: str) -> np.ndarray:
     return x.astype(np.float32, copy=False)
 
 
-def _forward(model, x: torch.Tensor, window: torch.Tensor,
-             envelope: torch.Tensor) -> torch.Tensor:
+def _forward(model, x: torch.Tensor, n: torch.Tensor | None, window: torch.Tensor,
+             envelope: torch.Tensor | None) -> torch.Tensor:
     """A batch's samples on the device, (rows, samples) int16 or float32, to
-    its enhanced waveforms (rows, samples) float32."""
+    its enhanced waveforms (rows, samples) float32 at the model's STFT.
+
+    ``n`` None (a causal model): the rows run as they are, with
+    ``envelope``, the iSTFT's of the batch's shape.  Otherwise (a model
+    that is not causal) ``n`` (rows,) int64 on the device is each row's own
+    sample count: the scaling (``scale_by_std``: by the unbiased standard
+    deviation of the row's own samples) reads only those, ``apply`` gets
+    each row's own frames ``n // hop + 1``, and the iSTFT divides by each
+    row's own envelope; nothing of ``n`` reaches the host."""
     if x.dtype == torch.int16:
         x = x.float().mul_(1 / 32768)
-    spec = stft(x, window)
-    enh = model.apply(spec.to(model.dtype)).float()
-    return istft_ola(enh, window, x.shape[-1], envelope)
+    cfg = model.stft_config
+    std = None
+    if n is not None and model.scale_by_std:
+        own = torch.arange(x.shape[-1], device=x.device) < n[:, None]
+        mean = torch.where(own, x, 0.0).sum(dim=-1, keepdim=True) / n[:, None]
+        var = torch.where(own, x - mean, 0.0).square().sum(dim=-1, keepdim=True)
+        std = torch.sqrt(var / (n[:, None] - 1))
+        x = x / std
+    spec = stft(x, window, cfg.n_fft, cfg.hop_len, cfg.win_len).to(model.dtype)
+    if n is None:
+        enh = model.apply(spec)
+    else:
+        frames = n // cfg.hop_len + 1
+        enh = model.apply(spec, frames)
+        envelope = ola_envelope_rows(window, frames, spec.shape[-2], x.shape[-1], cfg.hop_len)
+    y = istft_ola(enh.float(), window, x.shape[-1], envelope, cfg.hop_len)
+    return y if std is None else y * std
 
 
-def _envelope(window: torch.Tensor, samples: int) -> torch.Tensor:
-    return ola_envelope(window, samples // 256 + 1, samples)
+def _envelope(window: torch.Tensor, samples: int, hop_len: int) -> torch.Tensor:
+    return ola_envelope(window, samples // hop_len + 1, samples, hop_len)
 
 
 class _Replay:
     """One batch shape's :func:`_forward` as a CUDA graph: copy a batch into
-    ``x``, replay ``graph``, and read ``out`` before the next replay of any
-    graph of its pool."""
+    ``x`` (and its rows' lengths into ``n``, where the model takes them),
+    replay ``graph``, and read ``out`` before the next replay of any graph of
+    its pool."""
 
-    def __init__(self, model, x: torch.Tensor, window: torch.Tensor,
-                 envelope: torch.Tensor, pool):
+    def __init__(self, model, x: torch.Tensor, n: torch.Tensor | None, window: torch.Tensor,
+                 envelope: torch.Tensor | None, pool):
         """Capture the graph on the current stream (not the device's default),
         after a pass as it comes has loaded cuFFT's plans and cuDNN's engines;
-        the graph reads ``x``, ``window`` and ``envelope`` where they are."""
-        self.x, self.window, self.envelope = x, window, envelope
+        the graph reads ``x``, ``n``, ``window`` and ``envelope`` where they
+        are."""
+        self.x, self.n, self.window, self.envelope = x, n, window, envelope
         self.graph = torch.cuda.CUDAGraph()
         # capture_begin, not torch.cuda.graph: that one would first sync and
         # empty the device's and the page-locked caches
         self.graph.capture_begin(pool=pool)
         try:
-            self.out = _forward(model, x, window, envelope)
+            self.out = _forward(model, x, n, window, envelope)
         finally:
             self.graph.capture_end()
         if tracing():
@@ -158,35 +198,43 @@ class _Graphs:
     """A model's replays by (rows, samples, sample dtype), in one memory
     pool: each replay's output is copied out before the next replay, so the
     graphs may reuse one another's intermediates.  ``weights``: where the
-    model's tensors were at the captures."""
+    model's tensors were at the captures; ``window``: the model's."""
 
-    def __init__(self, weights: tuple, device: torch.device):
+    def __init__(self, weights: tuple, window: torch.Tensor):
         self.weights = weights
-        self.window = sqrt_hann_window(512, device=device)
+        self.window = window
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device)  # the captures'
+        self.stream = torch.cuda.Stream(window.device)  # the captures'
         self.replays: dict = {}
         self.lock = threading.Lock()  # one input and one output buffer a shape
 
-    def run(self, model, host: torch.Tensor) -> tuple[torch.Tensor, bool]:
-        """The enhanced waveforms of the page-locked batch ``host``, and
-        whether they came from a replay: the first batch of a shape runs as
-        it comes, and the shape's graph is captured behind it."""
+    def run(self, model, host: torch.Tensor,
+            host_n: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
+        """The enhanced waveforms of the page-locked batch ``host`` (with its
+        rows' lengths ``host_n``, page-locked, where the model takes them),
+        and whether they came from a replay: the first batch of a shape runs
+        as it comes, and the shape's graph is captured behind it."""
         key = (*host.shape, host.dtype)
         r = self.replays.get(key)
         if r is not None:
             r.x.copy_(host, non_blocking=True)
+            if r.n is not None:
+                r.n.copy_(host_n, non_blocking=True)
             r.graph.replay()
             return r.out, True
         dev = self.window.device
         cur = torch.cuda.current_stream(dev)
         x = torch.empty(host.shape, dtype=host.dtype, device=dev)
-        envelope = _envelope(self.window, host.shape[1])
+        n = None if host_n is None else torch.empty(host_n.shape, dtype=host_n.dtype, device=dev)
+        envelope = None if n is not None else _envelope(self.window, host.shape[1],
+                                                        model.stft_config.hop_len)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
             x.copy_(host, non_blocking=True)
-            first = _forward(model, x, self.window, envelope)
-            self.replays[key] = _Replay(model, x, self.window, envelope, self.pool)
+            if n is not None:
+                n.copy_(host_n, non_blocking=True)
+            first = _forward(model, x, n, self.window, envelope)
+            self.replays[key] = _Replay(model, x, n, self.window, envelope, self.pool)
         cur.wait_stream(self.stream)
         first.record_stream(cur)  # read there: its memory waits for that
         return first, False
@@ -201,16 +249,22 @@ def _graphs_of(model: nn.Module, dev: torch.device) -> _Graphs:
     at = _weights_at(model)
     g = _GRAPHS.get(model)
     if g is None or g.weights != at:
-        g = _GRAPHS[model] = _Graphs(at, dev)
+        g = _GRAPHS[model] = _Graphs(at, _window_of(model, dev))
     return g
+
+
+def _window_of(model, dev: torch.device) -> torch.Tensor:
+    return window_of(model.window, model.stft_config.win_len, device=dev)
 
 
 def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
              progress: bool, graphs: _Graphs | None) -> dict[str, np.ndarray]:
     """:func:`enhance_wavs`, each batch through ``graphs`` (a card's) or, with
     None, through :func:`_forward` as it comes."""
+    hop, half = model.stft_config.hop_len, model.stft_config.n_fft // 2
+    with_n = not model.causal  # each row carries its own length
     if graphs is None:
-        window = sqrt_hann_window(512, device=dev)
+        window = _window_of(model, dev)
         envelopes: dict = {}  # samples -> envelope
     # page-locked host buffers on a card: the copies to and from the device
     # then run at the link's rate, without CUDA's staging through its
@@ -224,9 +278,9 @@ def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
     lengths = [_length_16k(info.frames, info.fs) for info in infos]
     buckets: dict[int, list[int]] = {}
     for i, n in enumerate(lengths):
-        buckets.setdefault(_bucket_frames(n // 256 + 1), []).append(i)
-    # a bucket holds wavs of (len // 256 + 1) <= bucket frames, i.e.
-    # len < bucket * 256 samples: no tail is cut
+        buckets.setdefault(_bucket_frames(n // hop + 1), []).append(i)
+    # a bucket holds wavs of (len // hop + 1) <= bucket frames, i.e.
+    # len < bucket * hop samples: no tail is cut
     batches = [(bucket, idxs[j : j + batch_size]) for bucket, idxs in sorted(buckets.items())
                for j in range(0, len(idxs), batch_size)]
 
@@ -245,7 +299,7 @@ def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
 
     pending = None
     for bucket, chunk in batches:
-        samples = bucket * 256
+        samples = bucket * hop
         # a batch of mono 16-bit wavs at 16 kHz goes to the device as its raw
         # samples, read straight into the batch, and is scaled there (x /
         # 32768 is exact: read_wav's float samples); any other as float32
@@ -266,20 +320,26 @@ def _enhance(model, wav_paths: list[str], batch_size: int, dev: torch.device,
                 n = lengths[i]
                 # reflect-pad the true tail: x[n-2], x[n-3], ... (the JAX
                 # package's slice x[n-2 : n-2-r : -1] is empty when r = n-1)
-                r = max(min(256, samples - n, n - 1), 0)
+                r = max(min(half, samples - n, n - 1), 0)
                 batch[k, n : n + r] = batch[k, n - 2 - np.arange(r)]
                 batch[k, n + r :] = 0
+            host_n = None
+            if with_n:
+                host_n = torch.tensor([lengths[i] for i in chunk], dtype=torch.int64)
+                host_n = host_n.pin_memory() if pin else host_n
             if tracing():
-                count("infer.frames", sum(lengths[i] // 256 + 1 for i in chunk))
+                count("infer.frames", sum(lengths[i] // hop + 1 for i in chunk))
                 count("infer.frames_computed", bucket * len(chunk))
+                count("infer.frame_pairs", len(chunk) * bucket * bucket)
         with torch.no_grad(), exact_f32(), span("infer.forward"):
             if graphs is None:
-                if samples not in envelopes:
-                    envelopes[samples] = _envelope(window, samples)
-                wavs = _forward(model, host.to(dev, non_blocking=pin), window,
-                                envelopes[samples])
+                if not with_n and samples not in envelopes:
+                    envelopes[samples] = _envelope(window, samples, hop)
+                wavs = _forward(model, host.to(dev, non_blocking=pin),
+                                None if host_n is None else host_n.to(dev, non_blocking=pin),
+                                window, envelopes.get(samples))
             else:
-                wavs, replayed = graphs.run(model, host)
+                wavs, replayed = graphs.run(model, host, host_n)
                 if tracing():
                     count("infer.frames_graphed", bucket * len(chunk) if replayed else 0)
             # the copy back is queued behind this batch and ahead of the next

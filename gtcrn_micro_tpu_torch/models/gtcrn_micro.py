@@ -37,6 +37,7 @@ import torch.nn as nn
 
 from gtcrn_micro_tpu_torch import resolve_device
 from gtcrn_micro_tpu_torch.dsp.erb import ErbBands
+from gtcrn_micro_tpu_torch.dsp.stft import StftConfig
 from gtcrn_micro_tpu_torch.nn.blocks import GTCN, Decoder, Encoder, SFELite
 from gtcrn_micro_tpu_torch.nn.core import Ctx, exact_f32, name_paths
 
@@ -211,6 +212,12 @@ class GTCRNMicro(nn.Module):
 
     batch_axis = 0
     chunk_sizes = (1, 2, 4, 8, 16)
+    # what the offline entry point (eval/infer.py) reads of a model: the
+    # STFT's window, that no frame's output reads a later frame, and that
+    # the input is not scaled (the STFT's sizes are ``stft_config``)
+    window = "sqrt_hann"
+    causal = True
+    scale_by_std = False
 
     def __init__(self, config: GTCRNMicroConfig = GTCRNMicroConfig(),
                  dtype=torch.float32, device=None):
@@ -236,6 +243,11 @@ class GTCRNMicro(nn.Module):
     def _middle(self, ctx: Ctx, feat):
         """The bottleneck between the encoder and the decoder, (B, T, 33, C)."""
         return self.gtcn2(ctx, self.gtcn1(ctx, feat))
+
+    @property
+    def stft_config(self) -> StftConfig:
+        c = self.config
+        return StftConfig(c.n_fft, c.hop_len, c.win_len)
 
     @classmethod
     def from_params(cls, params: dict, dtype=torch.float32, device=None,

@@ -44,3 +44,14 @@ def _gtcrn(n_fft: int = 512, hop_len: int = 256, win_len: int = 512,
 
     return GTCRN(GTCRNMicroConfig(n_fft=n_fft, hop_len=hop_len, win_len=win_len, **kw),
                  dtype=dtype, device=device)
+
+
+@register_model("tfgridnet")
+def _tfgridnet(n_fft: int = 256, hop_len: int = 128, win_len: int | None = None,
+               dtype=torch.float32, device=None, **kw):
+    from gtcrn_micro_tpu_torch.models.tfgridnet import TFGridNet, TFGridNetConfig
+
+    if win_len not in (None, n_fft):
+        raise ValueError("TF-GridNet's window is n_fft long")
+    return TFGridNet(TFGridNetConfig(n_fft=n_fft, hop_len=hop_len, **kw), dtype=dtype,
+                     device=device)

@@ -1,5 +1,5 @@
-"""Layers and blocks of the layered GTCRN-Micro and GTCRN models (the JAX
-package's ``nn``, and GTCRN's recurrent layers)."""
+"""Layers and blocks of the layered GTCRN-Micro, GTCRN and TF-GridNet models
+(the JAX package's ``nn``, GTCRN's recurrent layers, TF-GridNet's block)."""
 
 from gtcrn_micro_tpu_torch.nn.blocks import (
     DPGRNN,
@@ -11,11 +11,13 @@ from gtcrn_micro_tpu_torch.nn.blocks import (
     ConvBlock,
     Decoder,
     Encoder,
+    GridNetBlock,
     GTConvBlock,
     SFELite,
 )
 from gtcrn_micro_tpu_torch.nn.core import (
     GRU,
+    LSTM,
     BatchNorm,
     CausalConv2d,
     Ctx,
@@ -27,7 +29,7 @@ from gtcrn_micro_tpu_torch.nn.core import (
 )
 
 __all__ = [
-    "DPGRNN", "GRNN", "GRU", "GTCN", "SFE", "TCN", "TRA", "BatchNorm", "CausalConv2d",
-    "ConvBlock", "Ctx", "Decoder", "Encoder", "GTConvBlock", "LayerNorm", "PReLU",
+    "DPGRNN", "GRNN", "GRU", "GTCN", "LSTM", "SFE", "TCN", "TRA", "BatchNorm", "CausalConv2d",
+    "ConvBlock", "Ctx", "Decoder", "Encoder", "GridNetBlock", "GTConvBlock", "LayerNorm", "PReLU",
     "Pointwise", "SFELite", "TRALite", "exact_f32",
 ]

@@ -18,7 +18,9 @@ GTCRN (Xiaobin-Rong/gtcrn, ``gtcrn.py``), of which GTCRN-Micro is the cut:
 the same ConvBlock, GTConvBlock, Encoder and Decoder at other parameters
 (``sfe``, ``depth_groups``, ``gate``, ``dilations``, ``in_ch``,
 ``groups``; ``models/gtcrn.py`` passes GTCRN's), and :class:`SFE`,
-:class:`TRA`, :class:`GRNN` and :class:`DPGRNN`.
+:class:`TRA`, :class:`GRNN` and :class:`DPGRNN`.  TF-GridNet's block
+(ESPnet ``tfgridnet_separator.py``): :class:`GridNetBlock` with its norms
+:class:`ChannelNorm`, :class:`FrameNorm` and :class:`MaskedGroupNorm`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as tF
 
 from gtcrn_micro_tpu_torch.nn.core import (
     GRU,
+    LSTM,
     BatchNorm,
     CausalConv2d,
     Ctx,
@@ -307,3 +310,191 @@ class Decoder(nn.Module):
         for i, layer in enumerate(self.children()):
             x = layer(ctx, x + en_outs[len(en_outs) - 1 - i])
         return x
+
+
+# ---------------------------------------------------------------------------
+# TF-GridNet (ESPnet espnet2/enh/separator/tfgridnet_separator.py)
+# ---------------------------------------------------------------------------
+#
+# Activations are (B, T, F, D), channels last; every leaf keeps ESPnet's
+# name and shape, so the model's state dict is ESPnet's separator's.  A
+# frame's validity, where bucket padding follows a clip, is ``frames`` (B,)
+# int64 on the device: each layer that reads across frames reads only the
+# valid ones (see models/tfgridnet.py).
+
+# rows of one intra LSTM call: the sub-band path runs over the B T frames in
+# chunks of at most this many, so that its unfold, the LSTM's gates and
+# outputs stay a few GB at 8,192-frame batches (the forward's peak is then
+# 23 GB at four rows of 8,193 frames)
+INTRA_ROWS = 8192
+
+
+class ChannelNorm(nn.Module):
+    """ESPnet's ``LayerNormalization4D``: LayerNorm over the channels at each
+    (t, f), biased variance, affine ``gamma``, ``beta`` of shape (1, C, 1, 1)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(1, channels, 1, 1))
+        self.beta = nn.Parameter(torch.zeros(1, channels, 1, 1))
+
+    def forward(self, x):
+        C = x.shape[-1]
+        return tF.layer_norm(x, (C,), self.gamma.view(C), self.beta.view(C), self.eps)
+
+
+class FrameNorm(nn.Module):
+    """ESPnet's ``LayerNormalization4DCF``: LayerNorm over (C, F) of each
+    frame, biased variance, affine of shape (1, C, 1, F); here over the last
+    two axes (F, C) of (..., F, C)."""
+
+    def __init__(self, channels: int, freqs: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(1, channels, 1, freqs))
+        self.beta = nn.Parameter(torch.zeros(1, channels, 1, freqs))
+
+    def affine(self) -> tuple:
+        """gamma, beta as (F, C)."""
+        return self.gamma[0, :, 0].t(), self.beta[0, :, 0].t()
+
+    def forward(self, x):
+        g, b = self.affine()
+        return tF.layer_norm(x, tuple(x.shape[-2:]), g.contiguous(), b.contiguous(), self.eps)
+
+
+class MaskedGroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm(1, C)`` over (B, T, F, C) whose statistics (mean and
+    biased variance over (T, F, C) of each row) cover only the row's first
+    ``frames[b]`` frames; every frame past them is zero on the way out."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__(1, channels, eps=eps)
+
+    def forward(self, x, frames=None):
+        B, T = x.shape[:2]
+        if frames is None:
+            mean = x.mean(dim=(1, 2, 3), keepdim=True)
+            var = x.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+        else:
+            live = (torch.arange(T, device=x.device) < frames[:, None])[:, :, None, None]
+            n = (frames * (x.shape[2] * x.shape[3])).to(x.dtype).view(B, 1, 1, 1)
+            mean = torch.where(live, x, 0.0).sum(dim=(1, 2, 3), keepdim=True) / n
+            var = torch.where(live, x - mean, 0.0).square().sum(dim=(1, 2, 3), keepdim=True) / n
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y if frames is None else torch.where(live, y, 0.0)
+
+
+def transposed_conv1d(h, conv: nn.ConvTranspose1d):
+    """``conv`` (stride 1) over h (N, W, C_in) channels last -> (N, W + k - 1,
+    C_out): one GEMM to every tap's output, (N W, C_in) x (C_in, k C_out),
+    then the k taps overlap-added."""
+    C_in, C_out, k = conv.weight.shape
+    N, W, _ = h.shape
+    z = (h.reshape(N * W, C_in) @ conv.weight.permute(0, 2, 1).reshape(C_in, k * C_out))
+    z = z.view(N, W, k, C_out)
+    out = conv.bias.expand(N, W + k - 1, C_out).contiguous()
+    for j in range(k):
+        out[:, j : j + W] += z[:, :, j]
+    return out
+
+
+class GridNetBlock(nn.Module):
+    """One TF-GridNet block (ESPnet ``GridNetBlock``, ``emb_hs`` 1) over
+    (B, T, F, D):
+
+    - intra (sub-band): ``intra_norm`` over D at each (t, f); an unfold of
+      ``emb_ks`` neighbours over F (row ``c k + j`` is channel c at offset
+      j); a BiLSTM over the F - k + 1 windows of each frame; ``intra_linear``
+      (ConvTranspose1d 2H -> D, kernel k) back to F; residual;
+    - inter (full-band): the same along T at each frequency with its own
+      weights; with ``frames``, each row's BiLSTM runs over its own
+      ``frames - k + 1`` windows (the backward direction from its own last
+      one) and the windows past them are zero before ``inter_linear``;
+    - attention: for each head l, Q_l, K_l = FrameNorm(PReLU(1x1 conv D ->
+      E)) and V_l = FrameNorm(PReLU(1x1 conv D -> D/L)), each frame
+      flattened to E F and D F / L values; softmax(Q K^T / sqrt(E F)) over
+      every frame (with ``frames``, every valid frame) as one
+      ``scaled_dot_product_attention``; the heads regrouped into D channels,
+      ``attn_concat_proj`` (1x1 conv, PReLU, FrameNorm); residual.
+
+    Under ``torch.profiler`` the three are the spans ``tfgridnet.intra``,
+    ``tfgridnet.inter`` and ``tfgridnet.attn``."""
+
+    def __init__(self, emb_dim: int, emb_ks: int, n_freqs: int, hidden: int, n_head: int,
+                 approx_qk_dim: int):
+        super().__init__()
+        D, k = emb_dim, emb_ks
+        self.emb_ks, self.n_head = k, n_head
+        self.E = -(-approx_qk_dim // n_freqs)
+        self.intra_norm = ChannelNorm(D)
+        self.intra_rnn = LSTM(D * k, hidden, bidirectional=True)
+        self.intra_linear = nn.ConvTranspose1d(2 * hidden, D, k)
+        self.inter_norm = ChannelNorm(D)
+        self.inter_rnn = LSTM(D * k, hidden, bidirectional=True)
+        self.inter_linear = nn.ConvTranspose1d(2 * hidden, D, k)
+        for i in range(n_head):
+            for kind, c in (("Q", self.E), ("K", self.E), ("V", D // n_head)):
+                self.add_module(f"attn_conv_{kind}_{i}", nn.Sequential(
+                    nn.Conv2d(D, c, 1), nn.PReLU(), FrameNorm(c, n_freqs)))
+        self.attn_concat_proj = nn.Sequential(nn.Conv2d(D, D, 1), nn.PReLU(),
+                                              FrameNorm(D, n_freqs))
+
+    def _unfold_rnn(self, ctx: Ctx, x, norm, rnn, linear, lengths=None):
+        """norm, unfold, BiLSTM and transposed conv over sequences x (N, S, D)."""
+        N, S, D = x.shape
+        k = self.emb_ks
+        win = norm(x).unfold(1, k, 1).reshape(N, S - k + 1, D * k)
+        return transposed_conv1d(rnn(ctx, win, lengths), linear)
+
+    def _heads(self, kind: str) -> list:
+        return [getattr(self, f"attn_conv_{kind}_{i}") for i in range(self.n_head)]
+
+    def _attention(self, x, frames=None):
+        B, T, F, D = x.shape
+        L = self.n_head
+        convs = self._heads("Q") + self._heads("K") + self._heads("V")
+        w = torch.cat([m[0].weight.flatten(1) for m in convs])  # (2 L E + D, D)
+        b = torch.cat([m[0].bias for m in convs])
+        # one PReLU slope per head and kind, spread over its channels
+        slope = torch.cat([m[1].weight.expand(m[0].out_channels) for m in convs])
+        z = tF.linear(x, w, b)
+        z = torch.where(z >= 0, z, z * slope)
+        qkv = []
+        for part, heads in zip(z.split([L * self.E, L * self.E, D], dim=-1),
+                               (self._heads("Q"), self._heads("K"), self._heads("V"))):
+            c = part.shape[-1] // L
+            h = part.view(B, T, F, L, c).permute(0, 3, 1, 2, 4)  # (B, L, T, F, c)
+            h = tF.layer_norm(h, (F, c), eps=heads[0][2].eps)
+            g, beta = zip(*(m[2].affine() for m in heads))
+            h = h * torch.stack(g)[None, :, None] + torch.stack(beta)[None, :, None]
+            qkv.append(h.reshape(B, L, T, F * c))
+        q, k, v = qkv
+        mask = None
+        if frames is not None:
+            mask = (torch.arange(T, device=x.device) < frames[:, None])[:, None, None, :]
+        o = tF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                            scale=q.shape[-1] ** -0.5)  # (B, L, T, F D/L)
+        o = o.view(B, L, T, F, D // L).permute(0, 2, 3, 1, 4).reshape(B, T, F, D)
+        conv, act, norm = self.attn_concat_proj
+        return norm(act(tF.linear(o, conv.weight.flatten(1), conv.bias)))
+
+    def forward(self, ctx: Ctx, x, frames=None):
+        """x (B, T, F, D), frames None or (B,) -> (B, T, F, D)."""
+        B, T, F, D = x.shape
+        with span("tfgridnet.intra"):
+            rows = x.reshape(B * T, F, D)
+            n = -(-rows.shape[0] // INTRA_ROWS)
+            y = torch.cat([self._unfold_rnn(ctx, r, self.intra_norm, self.intra_rnn,
+                                            self.intra_linear)
+                           for r in rows.chunk(n)])
+            x = x + y.view(B, T, F, D)
+        with span("tfgridnet.inter"):
+            windows = None if frames is None else (frames - self.emb_ks + 1).repeat_interleave(F)
+            cols = x.transpose(1, 2).reshape(B * F, T, D)
+            y = self._unfold_rnn(ctx, cols, self.inter_norm, self.inter_rnn, self.inter_linear,
+                                 windows)
+            x = x + y.view(B, F, T, D).transpose(1, 2)
+        with span("tfgridnet.attn"):
+            return x + self._attention(x, frames)

@@ -164,6 +164,11 @@ class QuantizedModel(nn.Module):
     v4 = property(lambda self: self._v4)
     device = property(lambda self: self.model.device)
     dtype = property(lambda self: self.model.dtype)
+    # what the offline entry point reads of a model (eval/infer.py)
+    stft_config = property(lambda self: self.model.stft_config)
+    window = property(lambda self: self.model.window)
+    causal = property(lambda self: self.model.causal)
+    scale_by_std = property(lambda self: self.model.scale_by_std)
 
     @property
     def act_qp(self) -> dict[str, QParams]:

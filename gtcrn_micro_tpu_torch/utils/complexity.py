@@ -10,7 +10,11 @@ JAX's lhs-dilated conv counts them), ``linear``, ``matmul``/``@`` and
 ``einsum`` (output elements x contracted size), and GTCRN's GRUs
 (``torch.gru`` over a sequence, ``torch.gru_cell`` for one step: output
 elements x 3 gates x (input + hidden size), the products of the input and
-the hidden state; the gates' elementwise work is not counted).
+the hidden state; the gates' elementwise work is not counted); and
+TF-GridNet's ``conv_transpose2d`` (output elements x input channels x
+kernel taps), LSTMs (``torch.lstm``: output elements x 4 gates x (input +
+hidden size)) and attention (``scaled_dot_product_attention``: query rows
+x key rows x (query width + value width) in every batch and head).
 """
 
 from __future__ import annotations
@@ -68,6 +72,15 @@ class _MacCounter(TorchFunctionMode):
         elif func is torch.gru:  # (input, hx, params, ...) -> (output, h_n)
             x, hx = args[0], args[1]
             self.total += out[0].numel() * 3 * (x.shape[-1] + hx.shape[-1])
+        elif func is tF.conv_transpose2d:  # weight (C_in, C_out / groups, kH, kW)
+            w = args[1] if len(args) > 1 else kwargs["weight"]
+            self.total += out.numel() * w.shape[0] * math.prod(w.shape[2:])
+        elif func is torch.lstm:  # (input, (h0, c0), params, ...) -> (output, h_n, c_n)
+            x, hx = args[0], args[1]
+            self.total += out[0].numel() * 4 * (x.shape[-1] + hx[0].shape[-1])
+        elif func is tF.scaled_dot_product_attention:  # q (.., Tq, E), k (.., Tk, E), v (.., Tk, V)
+            q, k, v = args[:3]
+            self.total += math.prod(q.shape[:-1]) * k.shape[-2] * (q.shape[-1] + v.shape[-1])
         elif func is torch.gru_cell:  # (input, hx, w_ih, w_hh, b_ih, b_hh) -> h
             self.total += out.numel() * 3 * (args[0].shape[-1] + args[1].shape[-1])
         elif func is torch.einsum:
@@ -88,7 +101,7 @@ def macs(fn, *example_args) -> int:
 
 def model_complexity(model, seconds: float = 1.0, fs: int = 16000) -> tuple[int, int]:
     """(params, MACs per ``seconds`` of audio) of a layered model
-    (``GTCRNMicro``, ``GTCRN``) on its device, ptflops-comparable: the
+    (``GTCRNMicro``, ``GTCRN``, ``TFGridNet``) on its device, ptflops-comparable: the
     offline forward over the frames of that much audio."""
     frames = int(seconds * fs) // model.config.hop_len + 1
     spec = torch.zeros((1, model.config.n_freqs, frames, 2), dtype=model.dtype,

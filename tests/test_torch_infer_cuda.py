@@ -160,3 +160,37 @@ def test_calls_from_two_threads_on_one_model(dev, paths):
     for out in got:
         for p in paths:
             np.testing.assert_array_equal(out[p], want[p])
+
+
+def test_tfgridnet_replays_one_shape_at_other_lengths(dev, tmp_path):
+    """TF-GridNet (not causal: each row carries its own length into the
+    graph) at a small size: two batches of one shape whose clips differ in
+    length, the second a replay of the first's graph, and a second call that
+    replays both; each clip equals that clip enhanced alone."""
+    from benchmark.reference import tfgridnet as ref
+    from gtcrn_micro_tpu_torch.models.tfgridnet import TFGridNet, TFGridNetConfig
+
+    small = dict(n_fft=32, hop_len=16, n_layers=2, lstm_hidden_units=8, attn_n_head=2,
+                 attn_approx_qk_dim=68, emb_dim=8)
+    model = TFGridNet.from_params(ref.init_params(11, dev, ref.Config(**small)),
+                                  config=TFGridNetConfig(**small), device=dev)
+    rng = np.random.default_rng(5)
+    paths = []
+    for i, frames in enumerate((20, 45, 33, 60)):  # every one in the 64-frame bucket
+        paths.append(str(tmp_path / f"t{i}.wav"))
+        write_wav(paths[-1], 0.2 * rng.standard_normal(16 * frames + 5), 16000)
+    alone = {}
+    for p in paths:
+        alone.update(_eager(model, [p], dev))
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        first = infer.enhance_wavs(model, paths, batch_size=2, device=dev, progress=False)
+    counters = profiling.recorded().counters
+    profiling.clear()
+    assert counters["infer.graph_captures"] == 1
+    assert counters["infer.frames_graphed"] == 2 * 64  # the second batch, a replay
+    again = _graphed(model, paths[::-1], dev)
+    for p in paths:
+        for got in (first[p], again[p]):
+            err = np.linalg.norm(got - alone[p]) / np.linalg.norm(alone[p])
+            assert err <= 1e-5, (p, err)

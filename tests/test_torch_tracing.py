@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark.run import load_module
 from benchmark.trace import Trace
+from gtcrn_micro_tpu_torch.dsp.stft import StftConfig
 from gtcrn_micro_tpu_torch.eval.infer import FS, enhance_wavs
 from gtcrn_micro_tpu_torch.io.wav import write_wav
 from gtcrn_micro_tpu_torch.models.gtcrn_micro import init_params
@@ -108,9 +109,11 @@ def test_served_step_spans(record, dft, shards):
 
 
 class _Identity:
-    """A model stand-in for ``enhance_wavs``: its output is its input."""
+    """A model stand-in for ``enhance_wavs``: its output is its input, at
+    GTCRN-Micro's STFT (the attributes the entry point reads of a model)."""
 
     device, dtype = torch.device("cpu"), torch.float32
+    stft_config, window, causal, scale_by_std = StftConfig(), "sqrt_hann", True, False
 
     def apply(self, spec):
         return spec
@@ -126,7 +129,9 @@ def test_enhance_wavs_counts_the_offline_cells_frames(record, tmp_path):
     plain = call()
     events = _profiled(call)
     rec = profiling.recorded()
-    assert rec.counters == {"infer.frames": 15_530, "infer.frames_computed": 23_680}
+    # frame pairs: rows x bucket frames squared, 7 x 128^2 + 25 x 256^2 + 16 x 1,024^2
+    assert rec.counters == {"infer.frames": 15_530, "infer.frames_computed": 23_680,
+                            "infer.frame_pairs": 18_530_304}
     assert sum(len(x) // 256 + 1 for x in plain.values()) == 15_530
     spans = rec.spans
     (root,) = [i for i, s in enumerate(spans) if s.name == "infer.call"]
