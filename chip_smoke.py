@@ -194,6 +194,18 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               1e-4; a silent slot exactly 0), its step timed on the host
               clock (steps 16-63) and by CUDA events.
 
+15. lstm   -- the LSTM kernel (``csrc/lstm.cu``): registers, local and
+              shared bytes, CTAs per SM and resident clusters; at TF-GridNet's
+              full-band shapes (516 rows x 4,094 and 8,190 windows at the
+              cell's lengths) the kernel and aten's loop each against the
+              CPU loop on 8 rows (the kernel within 10x of aten's error),
+              the kernel's time (CUDA events) beside its bound (float32
+              FMAs at 67 TFLOP/s on the valid steps) and aten's loop
+              replayed as a CUDA graph (``library_ms``, which the port no
+              longer calls for these shapes); TF-GridNet at 4 x 300 frames
+              launches it for the full-band BiLSTMs only.  ``--lstm`` runs
+              phases 1 and 15 alone.
+
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2094,6 +2106,105 @@ def gtcrn_phase(torch, dev, card) -> None:
         fail(f"gtcrn served: rel {rel_s:.3e}, silent slot {silent}")
 
 
+def lstm_phase(torch, dev, card) -> dict:
+    """Phase 15 (the module docstring): the LSTM kernel at TF-GridNet's
+    full-band shapes against aten's loop; returns its kernels row."""
+    from gtcrn_micro_tpu_torch.models.tfgridnet import TFGridNet
+    from gtcrn_micro_tpu_torch.nn.core import LSTM, Ctx
+    from gtcrn_micro_tpu_torch.ops import _build
+    from gtcrn_micro_tpu_torch.ops import lstm as lstm_kernel
+
+    t0 = time.perf_counter()
+    build_s = _build.build(("lstm",))
+    attrs = _build.kernel_attrs("lstm")["float32"]
+    clusters = lstm_kernel.resident_clusters(dev)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    say("lstm", f"built lstm in {build_s:.1f} s: {attrs['regs']} registers, "
+                f"{attrs['local_bytes']} local bytes per thread, {attrs['smem_bytes']} shared "
+                f"bytes per CTA, {attrs['ctas_per_sm']} CTAs per SM, {clusters} clusters of "
+                f"{lstm_kernel.CLUSTER} resident ({n_sm} SMs)")
+    if attrs["local_bytes"] > 0:
+        fail("lstm uses local memory (spills or a stack frame)")
+    if not lstm_kernel.takes(dev, torch.float32, False, 516, 192, 192, 2, clusters):
+        fail(f"the full-band 516 rows do not fit one wave of {clusters} clusters")
+
+    torch.manual_seed(0)
+    cpu = LSTM(192, 192, bidirectional=True)
+    gpu = LSTM(192, 192, bidirectional=True).to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    peak, per_call, bound_call, rels = 67e12, 0.0, 0.0, {}
+    row = {}
+    # the cell's two batches (4 clips x 129 bins): windows = frames - 3
+    for steps, lens in ((4094, [2498, 2914, 3331, 3748]), (8190, [7498] * 4)):
+        g = torch.Generator(device=dev).manual_seed(steps)
+        x = torch.randn(516, steps, 192, generator=g, device=dev)
+        lengths = torch.tensor(lens, device=dev).repeat_interleave(129)
+        with torch.no_grad():
+            got = gpu(Ctx(), x, lengths)
+            aten = gpu.plain(x, lengths)
+            rows = torch.tensor([0, 73, 74, 129, 257, 300, 443, 515])
+            want = cpu.plain(x[rows.to(dev)].cpu(), lengths[rows.to(dev)].cpu())
+        k_err = float((got[rows.to(dev)].cpu() - want).norm() / want.norm())
+        a_err = float((aten[rows.to(dev)].cpu() - want).norm() / want.norm())
+        ka = float((got - aten).norm() / aten.norm())
+        rels[steps] = (k_err, a_err)
+        del aten
+        w = list(gpu._flat_weights)
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: lstm_kernel.run(x, lengths, w, 2), n=5, warm=1)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                gpu.plain(x, lengths)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                gpu.plain(x, lengths)
+            lib_ms = cuda_ms(torch, graph.replay, n=3, warm=1)
+            del graph
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                               capture_output=True, text=True).stdout.strip()
+        valid = 129 * sum(lens)
+        flops = 2 * 2 * valid * (192 + 192) * 4 * 192  # both directions, valid steps
+        flops_bucket = 2 * 2 * 516 * steps * (192 + 192) * 4 * 192
+        bound_ms = flops / peak * 1e3
+        per_call += 6 * ms
+        bound_call += 6 * flops_bucket / peak
+        say("lstm", f"516 rows x {steps} steps (lengths {lens[0]}-{lens[-1]}): kernel {ms:.2f} ms "
+                    f"({ms * 1e3 / max(lens):.2f} us a step), aten's loop replayed "
+                    f"{lib_ms:.2f} ms; bound {bound_ms:.2f} ms at 67 TFLOP/s f32 on the valid "
+                    f"steps ({flops / 1e12:.2f} TFLOP; {bound_ms / ms:.1%} of it), "
+                    f"{flops_bucket / peak * 1e3:.2f} ms on the bucket's; rel vs the CPU loop: "
+                    f"kernel {k_err:.3e}, aten {a_err:.3e}; kernel vs aten {ka:.3e}; SM clock "
+                    f"{clock}")
+        if not (k_err <= max(10 * a_err, 1e-6) and torch.isfinite(got).all()):
+            fail(f"lstm at {steps} steps: kernel {k_err:.3e} against aten's {a_err:.3e}")
+        row[f"ms_{steps}"], row[f"library_ms_{steps}"] = ms, lib_ms
+        row[f"bound_ms_{steps}"] = bound_ms
+        del x, got
+    say("lstm", f"a call's 12 full-band launches: {per_call / 1e3:.3f} s; the bound of a call's "
+                f"full-band work on the buckets {bound_call:.3f} s (44.9 TFLOP at 67 TFLOP/s)")
+
+    model = TFGridNet(device=dev)
+    spec = torch.randn(4, 129, 300, 2, generator=torch.Generator().manual_seed(3)).to(dev)
+    with torch.no_grad():
+        y = model.apply(spec, torch.tensor([300, 250, 120, 37], device=dev))
+    torch.cuda.synchronize()
+    inter = sum(b.inter_rnn.launches for b in model.blocks)
+    intra = sum(b.intra_rnn.launches for b in model.blocks)
+    ok = inter == 6 and intra == 0 and bool(torch.isfinite(y).all())
+    say("lstm", f"TF-GridNet apply 4 x 300 frames: launches {inter} full-band (516 rows), "
+                f"{intra} sub-band (1,200 rows: aten's loop) {'ok' if ok else 'FAILED'}; "
+                f"{card}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        fail("the full-band LSTM did not take the kernel, or the sub-band one did")
+    return {"name": "lstm_layer", "route": "cuda", "source": "gtcrn_micro_tpu_torch/csrc/lstm.cu",
+            "replaces": None, "launches": inter, "ms": row["ms_8190"],
+            "library_ms": row["library_ms_8190"], "bound_ms": row["bound_ms_8190"],
+            "bound_by": "f32 FMA", "rel_err": rels, "clusters": clusters, **row,
+            **{k: {"float32": v} for k, v in attrs.items()}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
@@ -2130,6 +2241,12 @@ def main() -> None:
     )
     from gtcrn_micro_tpu_torch.serve import CohortServer, plan_cohorts
     from gtcrn_micro_tpu_torch.utils.roofline import fused_step_bound, work_per_stream
+
+    if "--lstm" in sys.argv[1:]:
+        row = lstm_phase(torch, dev, card)
+        say("done", f"lstm ok in {time.perf_counter() - t_start:.1f} s (--lstm: no other phase)")
+        print(json.dumps({"kernels": [row]}))
+        sys.exit(0)
 
     # -- 2. build --------------------------------------------------------
     native_build = None
@@ -2419,6 +2536,9 @@ def main() -> None:
     # -- 14. gtcrn: GTCRN offline and served against its plain reference ------
     gtcrn_phase(torch, dev, card)
 
+    # -- 15. lstm: the LSTM kernel at TF-GridNet's full-band shapes -----------
+    lstm_row = lstm_phase(torch, dev, card)
+
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "staged_launches": k["staged_launches"],
              "bench_launches": bench_launches[name],
@@ -2431,7 +2551,7 @@ def main() -> None:
              "wave_ms": k["wave_ms"], "wave_bound_ms": k["wave_bound_ms"],
              **{key: {dtn: a[key] for dtn, a in k["attrs"].items()}
                 for key in ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")}}
-            for name, k in kernels.items()]
+            for name, k in kernels.items()] + [lstm_row]
     say("done", f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -49,6 +49,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as tF
 
+from gtcrn_micro_tpu_torch.ops import lstm as lstm_kernel
+from gtcrn_micro_tpu_torch.utils.profiling import count
+
 
 @contextlib.contextmanager
 def exact_f32():
@@ -467,11 +470,19 @@ class LSTM(Layer, nn.LSTM):
     more over the rows reversed within their own lengths (one gather), so it
     starts at each row's own last step; its output is gathered back and
     every output past a row's length is zero.  Nothing about the lengths
-    reaches the host, so a CUDA graph replays the layer at other lengths."""
+    reaches the host, so a CUDA graph replays the layer at other lengths.
+
+    On a card, float32 with grad off, where the rows fit one resident wave
+    of its clusters (``ops/lstm.takes``: TF-GridNet's full-band 516 rows,
+    not its sub-band 8,192-row chunks), the layer is instead one launch of
+    the persistent kernel ``csrc/lstm.cu``: both directions at once, the
+    lengths read on the device, no gather.  ``launches`` counts those
+    launches, as does the counter ``tfgridnet.lstm_kernel`` under tracing."""
 
     def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = False):
         nn.LSTM.__init__(self, input_size, hidden_size, batch_first=True,
                          bidirectional=bidirectional)
+        self.launches = 0
 
     def _run(self, x, weights, bidirectional: bool):
         h0 = x.new_zeros((2 if bidirectional else 1, x.shape[0], self.hidden_size))
@@ -487,6 +498,15 @@ class LSTM(Layer, nn.LSTM):
     def forward(self, ctx: Ctx, x, lengths=None):
         """x (N, S, I), lengths None (every step valid) or (N,) -> y (N, S, D H)."""
         del ctx
+        directions = 2 if self.bidirectional else 1
+        if lstm_kernel.routes(x, self.hidden_size, directions):
+            self.launches += 1
+            count("tfgridnet.lstm_kernel")
+            return lstm_kernel.run(x.contiguous(), lengths, self._flat_weights, directions)
+        return self.plain(x, lengths)
+
+    def plain(self, x, lengths=None):
+        """The plain path, on any device: aten's loop and the gathers."""
         if lengths is None:
             return self._run(x, self._flat_weights, self.bidirectional)
         pos = torch.arange(x.shape[1], device=x.device)

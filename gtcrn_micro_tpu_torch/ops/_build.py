@@ -1,7 +1,9 @@
 """Build and bind the CUDA kernels in ``csrc/``.
 
-Each ``csrc/*.cu`` is compiled on first use by its own ``nvcc`` process (all
-started together) into a shared library with a plain C interface:
+Each ``csrc/*.cu`` is compiled on first use by its own ``nvcc`` process into
+a shared library with a plain C interface; the served kernels (``SOURCES``)
+are built together, and the LSTM kernel (``lstm.cu``) alone at its first
+launch, so a path that runs no LSTM never builds it:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/gtcrn_micro_tpu_torch/lib<name>-<hash>.so
@@ -47,16 +49,20 @@ _SIGNATURES = {
     "fused_grid": ("gtcrn_fused_grid_b2",
                    [_I, _P, ctypes.POINTER(_I), _I, _P, _P, _PP, _I, _I, _P,
                     ctypes.POINTER(_I)]),
+    # int gtcrn_lstm_layer(x, lengths, w, b, y, N, S, I, D, stream)
+    "lstm": ("gtcrn_lstm_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 # int gtcrn_<source>_attrs(int out[4 * n]): per instantiation (_KINDS) the
 # kernel's registers per thread, local bytes per thread, shared bytes per CTA
 # and resident CTAs per SM
 _ATTRS = ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")
 _KINDS = {"fused_step": ("float32", "bfloat16"),
-          "fused_grid": ("float32", "bfloat16", "bfloat16_staged")}
+          "fused_grid": ("float32", "bfloat16", "bfloat16_staged"),
+          "lstm": ("float32",)}
 
 _libs: dict = {}
 _attr_fns: dict = {}
+_cdlls: dict = {}
 
 
 def _nvcc() -> str:
@@ -75,15 +81,15 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile every source whose library is missing, one ``nvcc`` each, all
-    in parallel, printing what ptxas reports (registers, shared memory,
+def build(names: tuple = SOURCES) -> float:
+    """Compile each of ``names`` whose library is missing, one ``nvcc`` each,
+    all in parallel, printing what ptxas reports (registers, shared memory,
     spills).  Returns the seconds spent; raises with the compiler's output
     if a build fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in SOURCES:
+    for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
@@ -110,7 +116,7 @@ def _load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         path = _lib_path(name)
         if not path.exists():
-            build()
+            build(SOURCES if name in SOURCES else (name,))
         lib = ctypes.CDLL(str(path))
         sym, argtypes = _SIGNATURES[name]
         fn = getattr(lib, sym)
@@ -119,7 +125,7 @@ def _load(name: str) -> ctypes.CDLL:
         attrs = getattr(lib, f"gtcrn_{name}_attrs")
         attrs.argtypes = [ctypes.POINTER(_I)]
         attrs.restype = ctypes.c_int
-        _libs[name], _attr_fns[name] = fn, attrs
+        _libs[name], _attr_fns[name], _cdlls[name] = fn, attrs, lib
     return _libs[name]
 
 
@@ -203,3 +209,28 @@ def launch_b2(kw, spec, out, rings: list, t: int) -> bool:
                   ring_arr, t, spec.shape[0], stream, ctypes.byref(staged))
     _raise_on(code, "gtcrn_fused_grid_b2")
     return bool(staged.value)
+
+
+def launch_lstm(x, lengths, w, b, y, directions: int) -> None:
+    """The LSTM kernel over x (N, S, I) into y (N, S, directions * 192),
+    with lengths (N,) int64 or None; w and b as ``ops/lstm.pack`` makes
+    them.  The caller has checked every argument."""
+    fn = _load("lstm")
+    N, S, I = x.shape
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        code = fn(_ptr(x), None if lengths is None else _ptr(lengths), _ptr(w), _ptr(b), _ptr(y),
+                  N, S, I, directions, stream)
+    _raise_on(code, "gtcrn_lstm_layer")
+
+
+def lstm_clusters(device) -> int:
+    """Clusters of the LSTM kernel that ``device`` holds at once."""
+    _load("lstm")
+    fn = _cdlls["lstm"].gtcrn_lstm_clusters
+    fn.argtypes = [ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on(fn(ctypes.byref(n)), "gtcrn_lstm_clusters")
+    return n.value
