@@ -206,6 +206,17 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               launches it for the full-band BiLSTMs only.  ``--lstm`` runs
               phases 1 and 15 alone.
 
+16. tflocoformer -- TF-Locoformer at the published widths (``models/
+              tflocoformer.py``: cuBLAS GEMMs, scaled_dot_product_attention,
+              no kernel of this repo) through ``enhance_wavs`` on two clips
+              of 2.5 and 3.1 s in one batch of the 512-frame bucket, seeded
+              weights, against the plain reference
+              (``benchmark/reference/tflocoformer.py``, each clip alone):
+              the first call runs as it comes and is captured under the
+              profiler (the spans both open, and the attention's kernels by
+              name, with their device time), the second is a replay; each
+              clip within 1e-4 relative.  ``--tflocoformer`` runs phases 1 and 16 alone.
+
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2205,6 +2216,60 @@ def lstm_phase(torch, dev, card) -> dict:
             **{k: {"float32": v} for k, v in attrs.items()}}
 
 
+def tflocoformer_phase(torch, dev, card) -> None:
+    """Phase 16 (the module docstring): TF-Locoformer through the offline
+    entry point against its plain reference."""
+    import shutil
+
+    import numpy as np
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import inputs
+    from benchmark.reference import tflocoformer as ref
+    from benchmark.traffic.offline import clip_errors
+    from gtcrn_micro_tpu_torch.eval.infer import enhance_wavs
+    from gtcrn_micro_tpu_torch.models.registry import get_model
+    from gtcrn_micro_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    model = get_model("tflocoformer", device=dev)
+    P = ref.init_params(2_024_016, dev)
+    model.load_params(P)
+    paths, pcms = inputs.clip_set(2, (2.5, 3.1), 0, 0.0, 16, dev)
+    try:
+        profiling.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            first = enhance_wavs(model, paths, batch_size=2, device=dev, progress=False)
+            torch.cuda.synchronize()
+        spans = [s.name for s in profiling.recorded().spans]
+        profiling.clear()
+        kernels: dict = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and (
+                    "fmha" in e.key or "attention" in e.key.lower()):
+                kernels[e.key] = (e.count, e.device_time_total / 1e3)
+        second = enhance_wavs(model, paths, batch_size=2, device=dev, progress=False)
+        clips = [p.astype(np.float32) / 32768 for p in pcms]
+        with ref.no_tf32():
+            want = ref.offline_enhance(P, clips, dev)
+    finally:
+        shutil.rmtree(paths[0].rsplit("/", 1)[0], ignore_errors=True)
+    errs = [clip_errors([out[p] for p in paths], want) for out in (first, second)]
+    seen = {n: spans.count(n) for n in sorted(set(spans)) if n.startswith("tflocoformer.")}
+    say("tflocoformer", f"spans seen in the first call: {seen}")
+    for name, (n, ms) in kernels.items():
+        say("tflocoformer", f"attention kernel {name}: {n} launches, {ms:.3f} ms")
+    say("tflocoformer", f"2 clips ({[len(p) for p in pcms]} samples) as it comes, then replayed: "
+                        f"rel {errs[0]} / {errs[1]} against the reference; {card}; "
+                        f"{time.perf_counter() - t0:.1f} s")
+    # the first batch's pass as it comes and its capture: six blocks each
+    if seen != {"tflocoformer.freq": 12, "tflocoformer.time": 12} or not kernels:
+        fail(f"tflocoformer: spans {seen}, attention kernels {sorted(kernels)}")
+    if not max(errs[0] + errs[1]) <= 1e-4:
+        fail(f"tflocoformer: rel {errs} against the reference")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "gtcrn_micro_tpu_torch").is_dir():
@@ -2242,6 +2307,11 @@ def main() -> None:
     from gtcrn_micro_tpu_torch.serve import CohortServer, plan_cohorts
     from gtcrn_micro_tpu_torch.utils.roofline import fused_step_bound, work_per_stream
 
+    if "--tflocoformer" in sys.argv[1:]:
+        tflocoformer_phase(torch, dev, card)
+        say("done", f"tflocoformer ok in {time.perf_counter() - t_start:.1f} s "
+                    f"(--tflocoformer: no other phase)")
+        sys.exit(0)
     if "--lstm" in sys.argv[1:]:
         row = lstm_phase(torch, dev, card)
         say("done", f"lstm ok in {time.perf_counter() - t_start:.1f} s (--lstm: no other phase)")
@@ -2538,6 +2608,9 @@ def main() -> None:
 
     # -- 15. lstm: the LSTM kernel at TF-GridNet's full-band shapes -----------
     lstm_row = lstm_phase(torch, dev, card)
+
+    # -- 16. tflocoformer: TF-Locoformer through the offline entry point ------
+    tflocoformer_phase(torch, dev, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "staged_launches": k["staged_launches"],

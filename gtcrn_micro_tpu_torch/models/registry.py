@@ -55,3 +55,14 @@ def _tfgridnet(n_fft: int = 256, hop_len: int = 128, win_len: int | None = None,
         raise ValueError("TF-GridNet's window is n_fft long")
     return TFGridNet(TFGridNetConfig(n_fft=n_fft, hop_len=hop_len, **kw), dtype=dtype,
                      device=device)
+
+
+@register_model("tflocoformer")
+def _tflocoformer(n_fft: int = 256, hop_len: int = 128, win_len: int | None = None,
+                  dtype=torch.float32, device=None, **kw):
+    from gtcrn_micro_tpu_torch.models.tflocoformer import TFLocoformer, TFLocoformerConfig
+
+    if win_len not in (None, n_fft):
+        raise ValueError("TF-Locoformer's window is n_fft long")
+    return TFLocoformer(TFLocoformerConfig(n_fft=n_fft, hop_len=hop_len, **kw), dtype=dtype,
+                        device=device)

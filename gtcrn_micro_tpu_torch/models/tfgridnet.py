@@ -72,44 +72,44 @@ class TFGridNetConfig:
         return self.n_fft // 2 + 1
 
 
-class TFGridNet(nn.Module):
-    """The layered TF-GridNet on one device, in one dtype (GTCRN's interface:
-    ``apply``, ``load_params``, ``params``, ``device``, ``dtype``).  Its
-    state dict is ESPnet's ``TFGridNet`` separator's, leaf for leaf."""
+class SpectrumMapper(nn.Module):
+    """The top level TF-GridNet and TF-Locoformer share, over their blocks:
+    the input conv (Conv2d 2 -> C, 3x3, padding 1) with the gLN
+    (:class:`MaskedGroupNorm`), ``blocks`` (each ``block(ctx, x, lengths,
+    **extra)`` over (B, T, F, C)), the output transposed conv (C -> 2, 3x3,
+    padding 1), the frames past each row's length zeroed on the way in,
+    before the output conv and after it, and the DC and Nyquist bins'
+    imaginary parts zeroed.  GTCRN's interface: ``apply``, ``load_params``,
+    ``params``, ``device``, ``dtype``; the state dict is the published
+    model's, leaf for leaf.  A subclass builds ``blocks`` and calls
+    :meth:`_finish`."""
 
     window = "hann"
     causal = False
-    scale_by_std = True
 
-    def __init__(self, config: TFGridNetConfig = TFGridNetConfig(), dtype=torch.float32,
-                 device=None):
-        """A model of ESPnet's initial weights (load others with
-        :meth:`load_params`)."""
+    def __init__(self, emb_dim: int):
         super().__init__()
-        c = config
-        dev = resolve_device(device)
-        self.conv = nn.Sequential(nn.Conv2d(2, c.emb_dim, 3, padding=1),
-                                  MaskedGroupNorm(c.emb_dim))
-        self.blocks = nn.ModuleList(
-            GridNetBlock(c.emb_dim, c.emb_ks, c.n_freqs, c.lstm_hidden_units, c.attn_n_head,
-                         c.attn_approx_qk_dim) for _ in range(c.n_layers))
-        self.deconv = nn.ConvTranspose2d(c.emb_dim, 2, 3, padding=1)
+        self.conv = nn.Sequential(nn.Conv2d(2, emb_dim, 3, padding=1), MaskedGroupNorm(emb_dim))
+
+    def _finish(self, config, dtype, device) -> None:
+        """The output conv; names, dtype, device and STFT (after ``blocks``)."""
+        self.deconv = nn.ConvTranspose2d(config.emb_dim, 2, 3, padding=1)
         name_paths(self)
+        dev = resolve_device(device)
         self.to(dev, dtype)
-        self.config, self.dtype, self.device = c, dtype, dev
-        self.stft_config = StftConfig(c.n_fft, c.hop_len, c.n_fft)
+        self.config, self.dtype, self.device = config, dtype, dev
+        self.stft_config = StftConfig(config.n_fft, config.hop_len, config.n_fft)
 
     @classmethod
-    def from_params(cls, params: dict, dtype=torch.float32, device=None,
-                    config: TFGridNetConfig = TFGridNetConfig()) -> TFGridNet:
-        model = cls(config, dtype, device)
+    def from_params(cls, params: dict, dtype=torch.float32, device=None, config=None):
+        model = cls(dtype=dtype, device=device) if config is None else cls(config, dtype, device)
         model.load_params(params)
         return model
 
     def load_params(self, params: dict) -> None:
-        """Copy a param dict (nested, or flat with dotted keys: ESPnet's
-        names) into the model, cast to its dtype; every leaf must be present
-        with its shape, and no other."""
+        """Copy a param dict (nested, or flat with dotted keys: the published
+        model's names) into the model, cast to its dtype; every leaf must be
+        present with its shape, and no other."""
         flat = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.float32))
                 for k, v in flatten(params).items()}
         self.load_state_dict(flat, strict=True)
@@ -117,6 +117,10 @@ class TFGridNet(nn.Module):
     def params(self) -> dict:
         """The nested param dict (tensors that share the model's storage)."""
         return nest(self.state_dict())
+
+    def block_args(self, x) -> dict:
+        """Keywords every block takes beside x (B, T, F, C) and the lengths."""
+        return {}
 
     def forward(self, spec, ctx: Ctx, lengths=None):
         """spec (B, F, T, 2) -> the source's spec (B, F, T, 2); ``lengths``
@@ -128,10 +132,11 @@ class TFGridNet(nn.Module):
             live = (torch.arange(T, device=spec.device) < lengths[:, None])[:, :, None, None]
             x = torch.where(live, x, 0.0)
         x = x.contiguous().permute(0, 3, 1, 2)  # (B, 2, T, F), channels last
-        x = self.conv[0](x).permute(0, 2, 3, 1).contiguous()  # (B, T, F, D)
+        x = self.conv[0](x).permute(0, 2, 3, 1).contiguous()  # (B, T, F, C)
         x = self.conv[1](x, lengths)
+        extra = self.block_args(x)
         for block in self.blocks:
-            x = block(ctx, x, lengths)
+            x = block(ctx, x, lengths, **extra)
         if live is not None:
             x = torch.where(live, x, 0.0)
         y = tF.conv_transpose2d(x.permute(0, 3, 1, 2), self.deconv.weight, self.deconv.bias,
@@ -155,3 +160,20 @@ class TFGridNet(nn.Module):
         with exact_f32():
             return self(spec, Ctx(), lengths)
 
+
+class TFGridNet(SpectrumMapper):
+    """The layered TF-GridNet on one device, in one dtype.  Its state dict is
+    ESPnet's ``TFGridNet`` separator's, leaf for leaf."""
+
+    scale_by_std = True
+
+    def __init__(self, config: TFGridNetConfig = TFGridNetConfig(), dtype=torch.float32,
+                 device=None):
+        """A model of ESPnet's initial weights (load others with
+        :meth:`load_params`)."""
+        c = config
+        super().__init__(c.emb_dim)
+        self.blocks = nn.ModuleList(
+            GridNetBlock(c.emb_dim, c.emb_ks, c.n_freqs, c.lstm_hidden_units, c.attn_n_head,
+                         c.attn_approx_qk_dim) for _ in range(c.n_layers))
+        self._finish(c, dtype, device)

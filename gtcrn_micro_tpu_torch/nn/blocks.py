@@ -41,6 +41,8 @@ from gtcrn_micro_tpu_torch.nn.core import (
     PReLU,
     TRALite,
     hidden_state,
+    key_masked_attention,
+    rope,
 )
 from gtcrn_micro_tpu_torch.utils.profiling import span
 
@@ -471,11 +473,7 @@ class GridNetBlock(nn.Module):
             h = h * torch.stack(g)[None, :, None] + torch.stack(beta)[None, :, None]
             qkv.append(h.reshape(B, L, T, F * c))
         q, k, v = qkv
-        mask = None
-        if frames is not None:
-            mask = (torch.arange(T, device=x.device) < frames[:, None])[:, None, None, :]
-        o = tF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                            scale=q.shape[-1] ** -0.5)  # (B, L, T, F D/L)
+        o = key_masked_attention(q, k, v, frames, scale=q.shape[-1] ** -0.5)  # (B, L, T, F D/L)
         o = o.view(B, L, T, F, D // L).permute(0, 2, 3, 1, 4).reshape(B, T, F, D)
         conv, act, norm = self.attn_concat_proj
         return norm(act(tF.linear(o, conv.weight.flatten(1), conv.bias)))
@@ -498,3 +496,148 @@ class GridNetBlock(nn.Module):
             x = x + y.view(B, F, T, D).transpose(1, 2)
         with span("tfgridnet.attn"):
             return x + self._attention(x, frames)
+
+
+# -- TF-Locoformer (MERL tf-locoformer, ``TFLocoformerSeparator``) -----------
+#
+# Activations are (N, S, C) sequences, channels last: along frequency the
+# B T frames' F bins, along time the B F bins' T frames.  Every leaf keeps
+# MERL's name and shape.  Along time a sequence's validity is ``frames``
+# (N,) int64 on the device (see models/tflocoformer.py).
+
+# sequence positions one LocoformerBlock runs at once: a path runs over its
+# sequences in chunks of about this many positions (an FFN's 512-wide
+# windows and 768-wide conv output are then ~5 GB at most)
+LOCO_POSITIONS = 1 << 20
+
+
+class RMSGroupNorm(nn.Module):
+    """MERL's ``RMSGroupNorm`` at each position: the C channels in ``groups``
+    groups, each over its RMS plus ``eps`` (x_g / (||x_g|| / sqrt(C / G) +
+    eps)), then times ``gamma`` (C); no bias.  Zero maps to zero."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.gamma = nn.Parameter(torch.ones(channels))
+
+    def forward(self, x):
+        g = x.unflatten(-1, (self.groups, -1))
+        rms = torch.linalg.vector_norm(g, dim=-1, keepdim=True) * g.shape[-1] ** -0.5
+        return (g / (rms + self.eps)).flatten(-2) * self.gamma
+
+
+class ConvSwiGLU(nn.Module):
+    """MERL's ``SwiGLUConvDeconv1d`` at stride 1 over x (N, S, C): zero pad
+    of k - 1 each side, ``conv1d`` (C -> 2 H, kernel k) as one GEMM over the
+    S + k - 1 windows of k positions, u * SiLU(g) of its halves,
+    ``deconv1d`` (H -> C, kernel k) by :func:`transposed_conv1d`, and the
+    positions [k - 1, k - 1 + S) of its output."""
+
+    def __init__(self, channels: int, hidden: int, kernel: int):
+        super().__init__()
+        self.conv1d = nn.Conv1d(channels, 2 * hidden, kernel)
+        self.deconv1d = nn.ConvTranspose1d(hidden, channels, kernel)
+
+    def forward(self, x):
+        N, S, C = x.shape
+        k = self.conv1d.kernel_size[0]
+        xp = tF.pad(x, (0, 0, k - 1, k - 1))
+        # window j is positions j ... j + k - 1 of the padded sequence, k C
+        # values in a row of memory
+        win = xp.as_strided((N, S + k - 1, k * C), (xp.stride(0), C, 1))
+        w = self.conv1d.weight.permute(0, 2, 1).reshape(-1, k * C)  # (2 H, k C)
+        u, g = tF.linear(win, w, self.conv1d.bias).chunk(2, dim=-1)
+        return transposed_conv1d(u * tF.silu(g), self.deconv1d)[:, k - 1 : k - 1 + S]
+
+
+class RoPESelfAttention(nn.Module):
+    """MERL's ``MultiHeadSelfAttention`` over x (N, S, C): ``qkv`` (C -> 3 A,
+    no bias) read as (S, 3, heads, A / heads); the queries and keys turned
+    by the rotary table (:func:`nn.core.rope`); softmax(q k^T / sqrt(A /
+    heads)) v in each head, with ``frames`` over each sequence's valid keys
+    only; the heads concatenated into ``aggregate_heads`` (A -> C, no
+    bias)."""
+
+    def __init__(self, channels: int, attention_dim: int, n_heads: int):
+        super().__init__()
+        self.n_heads = n_heads
+        self.qkv = nn.Linear(channels, 3 * attention_dim, bias=False)
+        self.aggregate_heads = nn.Sequential(nn.Linear(attention_dim, channels, bias=False))
+
+    def forward(self, x, table, frames=None):
+        N, S, _ = x.shape
+        qkv = tF.linear(x, self.qkv.weight).view(N, S, 3, self.n_heads, -1)
+        q, k = rope(qkv[:, :, :2], table).unbind(2)  # (N, S, heads, E) each
+        o = key_masked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 qkv[:, :, 2].transpose(1, 2), frames)  # (N, heads, S, E)
+        return tF.linear(o.transpose(1, 2).reshape(N, S, -1), self.aggregate_heads[0].weight)
+
+
+class LocoformerBlock(nn.Module):
+    """MERL's ``LocoformerBlock`` (macaron, two conv-SwiGLU FFNs) over x (N, S,
+    C): x + FFN_1(norm(x)), then + MHSA(norm(x)), then + FFN_0(norm(x)),
+    each norm an :class:`RMSGroupNorm` of its own.  With ``frames`` (N,) the
+    residual stream is zero past each sequence's own positions at the input
+    of every sub-layer and the attention's keys are its own positions: each
+    sequence is computed as it would be alone at its own length."""
+
+    def __init__(self, channels: int, hidden: int, kernel: int, n_heads: int,
+                 attention_dim: int, groups: int):
+        super().__init__()
+        self.ffn_norm = nn.ModuleList(RMSGroupNorm(groups, channels) for _ in range(2))
+        self.ffn = nn.ModuleList(ConvSwiGLU(channels, hidden, kernel) for _ in range(2))
+        self.attn_norm = RMSGroupNorm(groups, channels)
+        self.attn = RoPESelfAttention(channels, attention_dim, n_heads)
+
+    def forward(self, x, table, frames=None):
+        """x (N, S, C), ``table`` the rotary table of S positions."""
+        live = None
+        if frames is not None:
+            live = (torch.arange(x.shape[1], device=x.device) < frames[:, None])[:, :, None]
+
+        def keep(y):
+            return y if live is None else torch.where(live, y, 0.0)
+
+        x = keep(x)
+        x = keep(x + self.ffn[1](self.ffn_norm[1](x)))
+        x = keep(x + self.attn(self.attn_norm(x), table, frames))
+        return x + self.ffn[0](self.ffn_norm[0](x))
+
+
+class TFLocoformerBlock(nn.Module):
+    """MERL's ``TFLocoformerBlock`` at ``tf_order`` "ft" and stride 1 over x
+    (B, T, F, C): ``freq_path``, a :class:`LocoformerBlock` over the F bins
+    of every frame, then ``frame_path``, one over the T frames of every bin
+    (with ``frames``, each row's own), each run over its sequences in chunks
+    of about :data:`LOCO_POSITIONS` positions.  ``tables``: the rotary
+    tables of F and of T positions.
+
+    Under ``torch.profiler`` the two paths are the spans
+    ``tflocoformer.freq`` and ``tflocoformer.time``."""
+
+    def __init__(self, channels: int, hidden: int, kernel: int, n_heads: int,
+                 attention_dim: int, groups: int):
+        super().__init__()
+        args = (channels, hidden, kernel, n_heads, attention_dim, groups)
+        self.freq_path = LocoformerBlock(*args)
+        self.frame_path = LocoformerBlock(*args)
+
+    @staticmethod
+    def _chunked(block, seqs, table, frames=None):
+        n = -(-seqs.shape[0] * seqs.shape[1] // LOCO_POSITIONS)
+        parts = seqs.chunk(n)
+        lens = [None] * len(parts) if frames is None else frames.chunk(n)
+        return torch.cat([block(s, table, f) for s, f in zip(parts, lens, strict=True)])
+
+    def forward(self, ctx: Ctx, x, frames=None, *, tables):
+        """x (B, T, F, C), frames None or (B,) -> (B, T, F, C)."""
+        del ctx
+        B, T, F, C = x.shape
+        with span("tflocoformer.freq"):
+            x = self._chunked(self.freq_path, x.reshape(B * T, F, C), tables[0]).view(B, T, F, C)
+        with span("tflocoformer.time"):
+            seq_frames = None if frames is None else frames.repeat_interleave(F)
+            y = self._chunked(self.frame_path, x.transpose(1, 2).reshape(B * F, T, C), tables[1],
+                              seq_frames)
+            return y.view(B, F, T, C).transpose(1, 2).contiguous()

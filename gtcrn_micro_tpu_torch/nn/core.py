@@ -537,6 +537,37 @@ class LayerNorm(nn.Module):
         return tF.layer_norm(x, self.shape, self.gamma, self.beta, self.eps)
 
 
+def key_masked_attention(q, k, v, frames=None, scale=None):
+    """softmax(q k^T scale) v over q (N, L, S, E), k (N, L, S, E), v (N, L,
+    S, V) as one ``scaled_dot_product_attention`` (``scale`` None: E^-1/2);
+    with ``frames`` (N,), sequence n's keys are its first ``frames[n]``."""
+    mask = None
+    if frames is not None:
+        mask = (torch.arange(k.shape[-2], device=q.device) < frames[:, None])[:, None, None, :]
+    return tF.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+def rope_table(positions: int, dim: int, device, theta: float = 10000.0):
+    """The rotary embedding's rotations at positions 0 ... ``positions`` - 1
+    of a ``dim``-wide head (rotary-embedding-torch ``RotaryEmbedding(dim)``):
+    complex64 (positions, dim / 2), pair i at position p turned by p
+    theta^(-2i / dim).  The angles are taken in float64 and their cosines and
+    sines rounded to float32."""
+    inv = theta ** (-torch.arange(0, dim, 2, dtype=torch.float64, device=device) / dim)
+    angle = torch.arange(positions, dtype=torch.float64, device=device)[:, None] * inv
+    return torch.polar(torch.ones_like(angle), angle).to(torch.complex64)
+
+
+def rope(x, table):
+    """x (N, S, ..., E) with each head's interleaved pairs (2i, 2i + 1)
+    turned by ``table`` (S, E / 2) (:func:`rope_table`): x'[2i] = x[2i] cos
+    - x[2i + 1] sin, x'[2i + 1] = x[2i + 1] cos + x[2i] sin, as one complex
+    product; float32 (N, S, ..., E), contiguous."""
+    pairs = torch.view_as_complex(x.unflatten(-1, (-1, 2)))
+    turn = table.view(table.shape[0], *[1] * (x.dim() - 3), table.shape[1])
+    return torch.view_as_real(pairs * turn).flatten(-2)
+
+
 def hidden_state(ctx: Ctx, layer: Layer, shape: tuple):
     """The hidden state (B, *shape) that ``layer`` carries from one
     streaming step to the next (its state key ``<path>/h``, updated in place

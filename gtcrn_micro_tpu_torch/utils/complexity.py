@@ -15,6 +15,11 @@ TF-GridNet's ``conv_transpose2d`` (output elements x input channels x
 kernel taps), LSTMs (``torch.lstm``: output elements x 4 gates x (input +
 hidden size)) and attention (``scaled_dot_product_attention``: query rows
 x key rows x (query width + value width) in every batch and head).
+TF-Locoformer's contractions pass through the same calls: each FFN's conv1d
+is a ``linear`` over its windows (output elements x k C), its transposed
+conv1d a ``matmul`` to every tap (output elements x H), the projections
+``linear`` and the attention ``scaled_dot_product_attention``; the rotary
+product, the norms and the gate are elementwise and not counted.
 """
 
 from __future__ import annotations
@@ -101,8 +106,9 @@ def macs(fn, *example_args) -> int:
 
 def model_complexity(model, seconds: float = 1.0, fs: int = 16000) -> tuple[int, int]:
     """(params, MACs per ``seconds`` of audio) of a layered model
-    (``GTCRNMicro``, ``GTCRN``, ``TFGridNet``) on its device, ptflops-comparable: the
-    offline forward over the frames of that much audio."""
+    (``GTCRNMicro``, ``GTCRN``, ``TFGridNet``, ``TFLocoformer``) on its
+    device, ptflops-comparable: the offline forward over the frames of that
+    much audio."""
     frames = int(seconds * fs) // model.config.hop_len + 1
     spec = torch.zeros((1, model.config.n_freqs, frames, 2), dtype=model.dtype,
                        device=model.device)

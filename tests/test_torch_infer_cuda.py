@@ -174,6 +174,23 @@ def test_tfgridnet_replays_one_shape_at_other_lengths(dev, tmp_path):
                  attn_approx_qk_dim=68, emb_dim=8)
     model = TFGridNet.from_params(ref.init_params(11, dev, ref.Config(**small)),
                                   config=TFGridNetConfig(**small), device=dev)
+    _replays_one_shape_at_other_lengths(model, dev, tmp_path)
+
+
+def test_tflocoformer_replays_one_shape_at_other_lengths(dev, tmp_path):
+    """TF-Locoformer (not causal; its residual stream along time zeroed past
+    each row's length in the graph) as TF-GridNet above."""
+    from benchmark.reference import tflocoformer as ref
+    from gtcrn_micro_tpu_torch.models.tflocoformer import TFLocoformer, TFLocoformerConfig
+
+    small = dict(n_fft=32, hop_len=16, n_layers=2, emb_dim=16, num_groups=4, n_heads=2,
+                 attention_dim=16, ffn_hidden_dim=24)
+    model = TFLocoformer.from_params(ref.init_params(11, dev, ref.Config(**small)),
+                                     config=TFLocoformerConfig(**small), device=dev)
+    _replays_one_shape_at_other_lengths(model, dev, tmp_path)
+
+
+def _replays_one_shape_at_other_lengths(model, dev, tmp_path):
     rng = np.random.default_rng(5)
     paths = []
     for i, frames in enumerate((20, 45, 33, 60)):  # every one in the 64-frame bucket

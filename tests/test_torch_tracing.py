@@ -156,6 +156,35 @@ def test_cpu_enhance_wavs_counts_no_graphed_frames(record, tmp_path):
     assert _reader("offline.graph_frames_pct")(_trace(0, 1)) is None
 
 
+# the model spans that open on the CPU (as on a card at a shape's first pass
+# and its capture, never under replay): each block's, once a block a batch
+MODEL_SPANS = {
+    "tfgridnet": (dict(n_fft=32, hop_len=16, n_layers=2, lstm_hidden_units=8, attn_n_head=2,
+                       attn_approx_qk_dim=68, emb_dim=8),
+                  ("tfgridnet.intra", "tfgridnet.inter", "tfgridnet.attn")),
+    "tflocoformer": (dict(n_fft=32, hop_len=16, n_layers=2, emb_dim=16, num_groups=4,
+                          n_heads=2, attention_dim=16, ffn_hidden_dim=24),
+                     ("tflocoformer.freq", "tflocoformer.time")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_SPANS))
+def test_model_spans_open_on_the_cpu(record, tmp_path, name):
+    """A model's block spans inside ``infer.forward``, in block order, each
+    within CLOCK_NS of its profiler range."""
+    from gtcrn_micro_tpu_torch.models.registry import get_model
+
+    widths, names = MODEL_SPANS[name]
+    model = get_model(name, device="cpu", **widths)
+    paths = _wavs(tmp_path, [16 * 40, 16 * 55])  # one batch of two rows
+    events = _profiled(lambda: enhance_wavs(model, paths, batch_size=2, device="cpu",
+                                            progress=False))
+    spans = profiling.recorded().spans
+    (forward,) = [i for i, s in enumerate(spans) if s.name == "infer.forward"]
+    assert [s.name for s in spans if s.parent == forward] == list(names) * widths["n_layers"]
+    _assert_on_the_profilers_clock(spans, events)
+
+
 @pytest.mark.cuda
 def test_spans_on_the_cards_clock(record, tmp_path):
     """On the card: the served step over B2 and the offline call over the
