@@ -206,16 +206,26 @@ seeded random weights.  Phases (one line each; any failed check exits 1):
               launches it for the full-band BiLSTMs only.  ``--lstm`` runs
               phases 1 and 15 alone.
 
-16. tflocoformer -- TF-Locoformer at the published widths (``models/
-              tflocoformer.py``: cuBLAS GEMMs, scaled_dot_product_attention,
-              no kernel of this repo) through ``enhance_wavs`` on two clips
-              of 2.5 and 3.1 s in one batch of the 512-frame bucket, seeded
-              weights, against the plain reference
+16. tflocoformer -- the FFN kernel (``csrc/loco_ffn.cu``): registers,
+              local and shared bytes, CTAs per SM; at the cell's chunk
+              shapes (6,555 x 129 along frequency; 104 x 8,193 along time,
+              masked past 2,501 / 7,501 / 8,193 frames) its time (CUDA
+              events) beside its bound (1,179,648 FLOPs a padded position at
+              165 TFLOP/s, three TF32 products on tensor cores) and the
+              layered sub-layer's, and both against float64 on 24 sequences.
+              Then TF-Locoformer at the published widths (``models/
+              tflocoformer.py``: the FFN kernel, cuBLAS GEMMs,
+              scaled_dot_product_attention) through ``enhance_wavs`` on two
+              clips of 2.5 and 3.1 s in one batch of the 512-frame bucket,
+              seeded weights, against the plain reference
               (``benchmark/reference/tflocoformer.py``, each clip alone):
               the first call runs as it comes and is captured under the
-              profiler (the spans both open, and the attention's kernels by
-              name, with their device time), the second is a replay; each
-              clip within 1e-4 relative.  ``--tflocoformer`` runs phases 1 and 16 alone.
+              profiler (the spans both open; the attention's kernels and the
+              FFN kernel by name, with their device time; every FFN of both
+              passes launched the kernel, by ``LocoformerBlock.launches``
+              and the counter ``tflocoformer.ffn_kernel``), the second is a
+              replay; each clip within 1e-4 relative.  ``--tflocoformer``
+              runs phases 1 and 16 alone.
 
 Prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2216,9 +2226,80 @@ def lstm_phase(torch, dev, card) -> dict:
             **{k: {"float32": v} for k, v in attrs.items()}}
 
 
-def tflocoformer_phase(torch, dev, card) -> None:
-    """Phase 16 (the module docstring): TF-Locoformer through the offline
-    entry point against its plain reference."""
+def loco_ffn_numbers(torch, dev, card) -> dict:
+    """Phase 16's first half: the FFN kernel at the cell's chunk shapes
+    against the layered sub-layer; returns its kernels row."""
+    from gtcrn_micro_tpu_torch.nn.blocks import ConvSwiGLU, RMSGroupNorm
+    from gtcrn_micro_tpu_torch.ops import _build
+    from gtcrn_micro_tpu_torch.ops import loco_ffn
+
+    build_s = _build.build(("loco_ffn",))
+    attrs = _build.kernel_attrs("loco_ffn")["float32"]
+    say("tflocoformer", f"built loco_ffn in {build_s:.1f} s: {attrs['regs']} registers, "
+                        f"{attrs['local_bytes']} local bytes per thread, {attrs['smem_bytes']} "
+                        f"shared bytes per CTA, {attrs['ctas_per_sm']} CTAs per SM")
+    if attrs["local_bytes"] > 0:
+        fail("loco_ffn uses local memory (spills or a stack frame)")
+    torch.manual_seed(0)
+    norm, ffn = RMSGroupNorm(4, 128), ConvSwiGLU(128, 384, 4)
+    with torch.no_grad():
+        norm.gamma.uniform_(0.5, 1.5)
+        ffn.conv1d.bias.uniform_(-0.5, 0.5)
+        ffn.deconv1d.bias.uniform_(-0.5, 0.5)
+    norm64, ffn64 = RMSGroupNorm(4, 128).double().to(dev), ConvSwiGLU(128, 384, 4).double().to(dev)
+    norm64.load_state_dict(norm.state_dict())
+    ffn64.load_state_dict(ffn.state_dict())
+    norm, ffn = norm.to(dev), ffn.to(dev)
+    peak = 495e12 / 3  # three TF32 products a float32 product
+
+    def layered(x, n, f, frames):
+        y = x + f(n(x))
+        if frames is None:
+            return y
+        return torch.where((torch.arange(x.shape[1], device=dev) < frames[:, None])[:, :, None],
+                           y, 0.0)
+
+    row = {}
+    for label, N, S, lens in (("freq", 6555, 129, None), ("time", 104, 8193, [2501, 7501, 8193])):
+        g = torch.Generator(device=dev).manual_seed(S)
+        x = torch.randn(N, S, 128, generator=g, device=dev)
+        frames = None
+        if lens is not None:
+            frames = torch.tensor(lens, device=dev).repeat(-(-N // len(lens)))[:N]
+            x = torch.where((torch.arange(S, device=dev) < frames[:, None])[:, :, None], x, 0.0)
+        with torch.no_grad():
+            got = loco_ffn.run(x, norm, ffn, frames)
+            want = layered(x, norm, ffn, frames)
+            rows = torch.linspace(0, N - 1, 24, device=dev).long()
+            exact = layered(x[rows].double(), norm64, ffn64, None if frames is None else frames[rows])
+            k_err = float((got[rows].double() - exact).norm() / exact.norm())
+            l_err = float((want[rows].double() - exact).norm() / exact.norm())
+            del got, want
+            ms = cuda_ms(torch, lambda: loco_ffn.run(x, norm, ffn, frames), n=10, warm=2)
+            lib_ms = cuda_ms(torch, lambda: layered(x, norm, ffn, frames), n=5, warm=1)
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                               capture_output=True, text=True).stdout.strip()
+        flops = 2 * 589_824 * N * (S + 3)  # the padded positions the kernel computes
+        bound_ms = flops / peak * 1e3
+        say("tflocoformer", f"FFN {label} {N} x {S}: kernel {ms:.3f} ms "
+                            f"({flops / ms / 1e9:.1f} TFLOP/s), layered {lib_ms:.3f} ms, bound "
+                            f"{bound_ms:.3f} ms at 165 TFLOP/s ({bound_ms / ms:.1%} of it); against "
+                            f"float64: kernel {k_err:.3e}, layered {l_err:.3e}; SM clock {clock}")
+        if not (k_err <= 4 * l_err):
+            fail(f"loco_ffn {label}: kernel {k_err:.3e} against the layered path's {l_err:.3e}")
+        row.update({f"ms_{label}": ms, f"library_ms_{label}": lib_ms,
+                    f"bound_ms_{label}": bound_ms, f"rel_err_{label}": (k_err, l_err)})
+        del x
+    return {"name": "loco_ffn", "route": "cuda",
+            "source": "gtcrn_micro_tpu_torch/csrc/loco_ffn.cu", "replaces": None,
+            "bound_by": "3xTF32 tensor cores", **row,
+            **{k: {"float32": v} for k, v in attrs.items()}}
+
+
+def tflocoformer_phase(torch, dev, card) -> dict:
+    """Phase 16 (the module docstring): the FFN kernel, then TF-Locoformer
+    through the offline entry point against its plain reference; returns
+    the kernel's row."""
     import shutil
 
     import numpy as np
@@ -2230,9 +2311,11 @@ def tflocoformer_phase(torch, dev, card) -> None:
     from benchmark.traffic.offline import clip_errors
     from gtcrn_micro_tpu_torch.eval.infer import enhance_wavs
     from gtcrn_micro_tpu_torch.models.registry import get_model
+    from gtcrn_micro_tpu_torch.nn.blocks import LocoformerBlock
     from gtcrn_micro_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
+    row = loco_ffn_numbers(torch, dev, card)
     model = get_model("tflocoformer", device=dev)
     P = ref.init_params(2_024_016, dev)
     model.load_params(P)
@@ -2242,13 +2325,20 @@ def tflocoformer_phase(torch, dev, card) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             first = enhance_wavs(model, paths, batch_size=2, device=dev, progress=False)
             torch.cuda.synchronize()
-        spans = [s.name for s in profiling.recorded().spans]
+        rec = profiling.recorded()
+        spans = [s.name for s in rec.spans]
+        counted = rec.counters.get("tflocoformer.ffn_kernel", 0)
         profiling.clear()
         kernels: dict = {}
+        ffn_kernel = (0, 0.0)
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and (
-                    "fmha" in e.key or "attention" in e.key.lower()):
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "fmha" in e.key or "attention" in e.key.lower():
                 kernels[e.key] = (e.count, e.device_time_total / 1e3)
+            elif "loco_ffn" in e.key:
+                ffn_kernel = (ffn_kernel[0] + e.count, ffn_kernel[1] + e.device_time_total / 1e3)
+        launches = sum(m.launches for m in model.modules() if isinstance(m, LocoformerBlock))
         second = enhance_wavs(model, paths, batch_size=2, device=dev, progress=False)
         clips = [p.astype(np.float32) / 32768 for p in pcms]
         with ref.no_tf32():
@@ -2260,6 +2350,9 @@ def tflocoformer_phase(torch, dev, card) -> None:
     say("tflocoformer", f"spans seen in the first call: {seen}")
     for name, (n, ms) in kernels.items():
         say("tflocoformer", f"attention kernel {name}: {n} launches, {ms:.3f} ms")
+    say("tflocoformer", f"FFN kernel: {launches} launches (LocoformerBlock.launches), counter "
+                        f"tflocoformer.ffn_kernel {counted}, {ffn_kernel[0]} on the device in "
+                        f"{ffn_kernel[1]:.3f} ms (the first call: its pass and its capture)")
     say("tflocoformer", f"2 clips ({[len(p) for p in pcms]} samples) as it comes, then replayed: "
                         f"rel {errs[0]} / {errs[1]} against the reference; {card}; "
                         f"{time.perf_counter() - t0:.1f} s")
@@ -2268,6 +2361,11 @@ def tflocoformer_phase(torch, dev, card) -> None:
         fail(f"tflocoformer: spans {seen}, attention kernels {sorted(kernels)}")
     if not max(errs[0] + errs[1]) <= 1e-4:
         fail(f"tflocoformer: rel {errs} against the reference")
+    # 6 blocks x 2 paths x 2 FFNs over one chunk a path, as it comes and at capture
+    if not (launches == counted == 48 and ffn_kernel[0] == 24):
+        fail(f"tflocoformer: FFN kernel launches {launches}, counted {counted}, on the device "
+             f"{ffn_kernel[0]}: not every FFN took the kernel")
+    return {**row, "launches": launches}
 
 
 def main() -> None:
@@ -2308,9 +2406,10 @@ def main() -> None:
     from gtcrn_micro_tpu_torch.utils.roofline import fused_step_bound, work_per_stream
 
     if "--tflocoformer" in sys.argv[1:]:
-        tflocoformer_phase(torch, dev, card)
+        row = tflocoformer_phase(torch, dev, card)
         say("done", f"tflocoformer ok in {time.perf_counter() - t_start:.1f} s "
                     f"(--tflocoformer: no other phase)")
+        print(json.dumps({"kernels": [row]}))
         sys.exit(0)
     if "--lstm" in sys.argv[1:]:
         row = lstm_phase(torch, dev, card)
@@ -2609,8 +2708,8 @@ def main() -> None:
     # -- 15. lstm: the LSTM kernel at TF-GridNet's full-band shapes -----------
     lstm_row = lstm_phase(torch, dev, card)
 
-    # -- 16. tflocoformer: TF-Locoformer through the offline entry point ------
-    tflocoformer_phase(torch, dev, card)
+    # -- 16. tflocoformer: its FFN kernel, then TF-Locoformer offline --------
+    loco_row = tflocoformer_phase(torch, dev, card)
 
     rows = [{"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
              "launches": k["launches"], "staged_launches": k["staged_launches"],
@@ -2624,7 +2723,7 @@ def main() -> None:
              "wave_ms": k["wave_ms"], "wave_bound_ms": k["wave_bound_ms"],
              **{key: {dtn: a[key] for dtn, a in k["attrs"].items()}
                 for key in ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")}}
-            for name, k in kernels.items()] + [lstm_row]
+            for name, k in kernels.items()] + [lstm_row, loco_row]
     say("done", f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

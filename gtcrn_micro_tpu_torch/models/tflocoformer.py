@@ -35,7 +35,9 @@ length are zero.
 
 Departures from MERL's code, of layout and none of numbers: activations
 are channels last, (B, T, F, C); a conv1d runs as one GEMM over its
-windows, a transposed conv1d as a GEMM and an overlap-add of its taps; the
+windows, a transposed conv1d as a GEMM and an overlap-add of its taps (on
+a card at grad off each FFN sub-layer, norm and residual included, is one
+kernel instead, ``ops/loco_ffn``: three TF32 products a float32 product); the
 rotary tables (rotary-embedding-torch ``RotaryEmbedding(32)``: theta
 10,000, interleaved pairs) are computed, not kept in the state dict
 (MERL's ``attn.rope.freqs`` leaves, fixed, are left out), their angles in

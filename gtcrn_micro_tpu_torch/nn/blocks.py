@@ -44,7 +44,8 @@ from gtcrn_micro_tpu_torch.nn.core import (
     key_masked_attention,
     rope,
 )
-from gtcrn_micro_tpu_torch.utils.profiling import span
+from gtcrn_micro_tpu_torch.ops import loco_ffn
+from gtcrn_micro_tpu_torch.utils.profiling import count, span
 
 
 class SFELite(nn.Module):
@@ -580,7 +581,13 @@ class LocoformerBlock(nn.Module):
     each norm an :class:`RMSGroupNorm` of its own.  With ``frames`` (N,) the
     residual stream is zero past each sequence's own positions at the input
     of every sub-layer and the attention's keys are its own positions: each
-    sequence is computed as it would be alone at its own length."""
+    sequence is computed as it would be alone at its own length.
+
+    On a card, float32 with grad off at the published widths
+    (``ops/loco_ffn.takes``), each FFN sub-layer, its norm, residual and mask
+    included, is one launch of the kernel ``csrc/loco_ffn.cu``; ``launches``
+    counts those launches, as does the counter ``tflocoformer.ffn_kernel``
+    under tracing."""
 
     def __init__(self, channels: int, hidden: int, kernel: int, n_heads: int,
                  attention_dim: int, groups: int):
@@ -589,6 +596,17 @@ class LocoformerBlock(nn.Module):
         self.ffn = nn.ModuleList(ConvSwiGLU(channels, hidden, kernel) for _ in range(2))
         self.attn_norm = RMSGroupNorm(groups, channels)
         self.attn = RoPESelfAttention(channels, attention_dim, n_heads)
+        self.launches = 0
+
+    def _ffn(self, i: int, x, frames, keep):
+        """x + FFN_i(norm_i(x)), through ``keep`` for FFN_1."""
+        norm, ffn = self.ffn_norm[i], self.ffn[i]
+        if loco_ffn.routes(x, norm, ffn):
+            self.launches += 1
+            count("tflocoformer.ffn_kernel")
+            return loco_ffn.run(x, norm, ffn, frames if i == 1 else None)
+        y = x + ffn(norm(x))
+        return keep(y) if i == 1 else y
 
     def forward(self, x, table, frames=None):
         """x (N, S, C), ``table`` the rotary table of S positions."""
@@ -599,10 +617,9 @@ class LocoformerBlock(nn.Module):
         def keep(y):
             return y if live is None else torch.where(live, y, 0.0)
 
-        x = keep(x)
-        x = keep(x + self.ffn[1](self.ffn_norm[1](x)))
+        x = self._ffn(1, keep(x), frames, keep)
         x = keep(x + self.attn(self.attn_norm(x), table, frames))
-        return x + self.ffn[0](self.ffn_norm[0](x))
+        return self._ffn(0, x, frames, keep)
 
 
 class TFLocoformerBlock(nn.Module):

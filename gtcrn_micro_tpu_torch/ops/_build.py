@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` is compiled on first use by its own ``nvcc`` process into
 a shared library with a plain C interface; the served kernels (``SOURCES``)
-are built together, and the LSTM kernel (``lstm.cu``) alone at its first
-launch, so a path that runs no LSTM never builds it:
+are built together, and the LSTM kernel (``lstm.cu``) and the TF-Locoformer
+FFN kernel (``loco_ffn.cu``) each alone at its first launch, so a path that
+runs neither model never builds them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/gtcrn_micro_tpu_torch/lib<name>-<hash>.so
@@ -51,6 +52,8 @@ _SIGNATURES = {
                     ctypes.POINTER(_I)]),
     # int gtcrn_lstm_layer(x, lengths, w, b, y, N, S, I, D, stream)
     "lstm": ("gtcrn_lstm_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # int gtcrn_loco_ffn(x, w, b1, b2, gamma, frames, y, N, S, eps, stream)
+    "loco_ffn": ("gtcrn_loco_ffn", [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P]),
 }
 # int gtcrn_<source>_attrs(int out[4 * n]): per instantiation (_KINDS) the
 # kernel's registers per thread, local bytes per thread, shared bytes per CTA
@@ -58,7 +61,8 @@ _SIGNATURES = {
 _ATTRS = ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")
 _KINDS = {"fused_step": ("float32", "bfloat16"),
           "fused_grid": ("float32", "bfloat16", "bfloat16_staged"),
-          "lstm": ("float32",)}
+          "lstm": ("float32",),
+          "loco_ffn": ("float32",)}
 
 _libs: dict = {}
 _attr_fns: dict = {}
@@ -222,6 +226,19 @@ def launch_lstm(x, lengths, w, b, y, directions: int) -> None:
         code = fn(_ptr(x), None if lengths is None else _ptr(lengths), _ptr(w), _ptr(b), _ptr(y),
                   N, S, I, directions, stream)
     _raise_on(code, "gtcrn_lstm_layer")
+
+
+def launch_loco_ffn(x, w, b1, b2, gamma, frames, y, eps: float) -> None:
+    """The FFN kernel over x (N, S, 128) into y, with w as ``ops/loco_ffn.pack``
+    makes it, the biases and the norm's scale, and frames (N,) int64 or
+    None.  The caller has checked every argument."""
+    fn = _load("loco_ffn")
+    N, S, _ = x.shape
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        code = fn(_ptr(x), _ptr(w), _ptr(b1), _ptr(b2), _ptr(gamma),
+                  None if frames is None else _ptr(frames), _ptr(y), N, S, eps, stream)
+    _raise_on(code, "gtcrn_loco_ffn")
 
 
 def lstm_clusters(device) -> int:
